@@ -34,14 +34,18 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32, outside tensor cores
 
-WIDTH, HEIGHT, NUM_FEATURES = 752, 480, 5000
-
-# Arithmetic operations per pixel, counted from the kernel sources (one
-# per add/mul/compare/select; sqrt, exp and divide as one each).
+# Arithmetic operations per pixel that each FUNCTION needs (one per
+# add/mul/compare/select; sqrt, exp, floor and divide as one each), not
+# what a particular kernel happens to recompute.
 DETECT_OPS_PER_RECORD = 250     # per pixel and record layer
 ORI_OPS_PER_PIXEL = 57
-DESC_OPS_PER_MASKED_PIXEL = 22  # every pixel inside the radius/bounds mask
-DESC_OPS_PER_GRID_PIXEL = 128   # further ops for pixels inside the 4x4 grid
+DESC_OPS_PER_MASKED_PIXEL = 22  # offsets, masks, rotation, 4x4-grid test:
+#                                 every pixel inside the radius/bounds mask
+# Further operations of a pixel inside the grid: gradient and magnitude 6,
+# polynomial atan2 32, Gaussian weights 9, orientation bin 6, three floors
+# 3, two row hats 8, two column hats 8, two orientation hats 14, four
+# row x column products 4, eight products and eight accumulations 16.
+DESC_OPS_PER_GRID_PIXEL = 106
 
 
 def say(obj) -> None:
@@ -167,7 +171,28 @@ def check_detect(gauss, cfg):
         extra=dict(interior_pixels=n, flag_mismatch=tot["flags"],
                    a_mismatch=tot["a"], b_mismatch=tot["b"],
                    c_mismatch=tot["c"], bit_exact_incl_rim=exact,
-                   ms_octave0=ms0, launches_per_frame=len(gauss)))
+                   ms_octave0=ms0))
+
+
+def check_expand(base, copies):
+    """K5 at the main path's slab shape: pure data movement, so exact."""
+    from sift_tpu_torch.kernels import expand as EX
+
+    ker = EX.expand_lane_copies_cuda(base, copies)
+    pla = EX.expand_lane_copies_plain(base, copies)
+    torch.cuda.synchronize()
+    exact = ker.shape == pla.shape and bool(torch.equal(ker, pla))
+    err = float((ker - pla).abs().max()) if ker.shape == pla.shape \
+        else float("inf")
+    ms = time_ms(lambda: EX.expand_lane_copies_cuda(base, copies))
+    plain_ms = time_ms(lambda: EX.expand_lane_copies_plain(base, copies))
+    return finish_entry(
+        name="expand_lane_copies", source="sift_tpu_torch/csrc/expand.cu",
+        replaces="sift_tpu/kernels/expand.py:39",
+        shapes=dict(base=list(base.shape), copies=copies),
+        max_abs_err=err, tolerance="bit-exact", passed=exact, ms=ms,
+        plain_ms=plain_ms, bytes_=(1 + copies) * base.numel() * 4, ops=0,
+        extra=dict(bit_exact=exact))
 
 
 def finish_entry(*, name, source, replaces, shapes, max_abs_err, tolerance,
@@ -178,7 +203,8 @@ def finish_entry(*, name, source, replaces, shapes, max_abs_err, tolerance,
              launches=None, max_abs_err=max_abs_err, ms=ms,
              plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
              bound_by="bytes" if t_bytes >= t_ops else "operations",
-             library_ms=None, shapes=shapes, tolerance=tolerance,
+             library_ms=None, launches_per_frame=None, shapes=shapes,
+             tolerance=tolerance,
              passed=bool(passed), bytes=int(bytes_), operations=int(ops))
     e.update(extra)
     return e
@@ -268,8 +294,7 @@ def check_orientation(tap, label):
         bytes_=stage_bytes(tap["values"], tap["par"], nrow, ncol, count, 36),
         ops=ORI_OPS_PER_PIXEL * pixels,
         extra=dict(inputs=label, max_rel_err=rel, pixels=pixels,
-                   rows_past_count_untouched=tail_untouched,
-                   launches_per_frame=1))
+                   rows_past_count_untouched=tail_untouched))
 
 
 def check_descriptor(tap, label, radius_classes=False):
@@ -293,8 +318,7 @@ def check_descriptor(tap, label, radius_classes=False):
     extra = dict(inputs=label, max_u8_diff=float(dq.max()) if k else 0.0,
                  frac_u8_entries_differing=float((dq > 0).float().mean())
                  if k else 0.0,
-                 rows_past_count_untouched=tail_untouched,
-                 launches_per_frame=1)
+                 rows_past_count_untouched=tail_untouched)
     passed = (not k or float(dq.max()) <= 1.0) and tail_untouched
     if radius_classes:
         rad = tap["par"][:count, 7]
@@ -341,16 +365,60 @@ def check_descriptor(tap, label, radius_classes=False):
         extra=extra)
 
 
-def synthetic_taps(det, gauss, seed=1):
+def stage_inputs(slab, kp, count, cfg):
+    """The orientation and descriptor wrappers' arguments for keypoints
+    ``kp`` (a dict of fields), built by the ops the detector itself calls."""
+    from sift_tpu_torch.ops import descriptor as D
+    from sift_tpu_torch.ops import orientation as O
+
+    ys0, xs0, par, rows, lanes = O.orientation_params(
+        slab, kp["octave"], kp["x"], kp["y"], kp["layer"], kp["size"],
+        kp["valid"], cfg)
+    ori = dict(values=slab.values, ys0=ys0, xs0=xs0, par=par, rows=rows,
+               lanes=lanes, count=count)
+    if "angle" not in kp:
+        return ori, None
+    ys0, xs0, par, rows, lanes = D.descriptor_params(
+        slab, kp["octave"], kp["x"], kp["y"], kp["layer"], kp["size"],
+        kp["angle"], kp["valid"], cfg)
+    desc = dict(values=slab.values, ys0=ys0, xs0=xs0, par=par, rows=rows,
+                lanes=lanes, count=count)
+    return ori, desc
+
+
+def frame_inputs(slab, res, cfg):
+    """The main path's own inputs of the orientation and descriptor
+    kernels for the frame that gave ``res``.  The descriptor kernel ran on
+    the result's keypoints.  The orientation kernel ran on the keypoints
+    before their expansion into one copy per orientation peak: the copies
+    of one keypoint are adjacent, so the first of each run, compacted in
+    order, is that set (checked against ``res.raw_count``)."""
+    from sift_tpu_torch.ops.compact import stream_compact
+
+    k = res.keypoints
+    full = {f: getattr(k, f) for f in ("octave", "x", "y", "layer", "size",
+                                       "angle", "valid")}
+    _, desc = stage_inputs(slab, full, res.count, cfg)
+    same = torch.ones_like(k.valid)
+    for f in ("octave", "x", "y", "layer", "size"):
+        v = getattr(k, f)
+        same[1:] &= v[1:] == v[:-1]
+    same[0] = False
+    idx, val = stream_compact(k.valid & ~same, k.valid.shape[0])
+    idx = idx.to(torch.int64)
+    raw = {f: full[f][idx] for f in ("octave", "x", "y", "layer", "size")}
+    raw["valid"] = val
+    if int(val.sum()) != int(res.raw_count):
+        fail(f"rebuilt {int(val.sum())} pre-expansion keypoints, the frame "
+             f"had {int(res.raw_count)}")
+    ori, _ = stage_inputs(slab, raw, res.raw_count, cfg)
+    return ori, desc
+
+
+def synthetic_inputs(det, slab, seed=1):
     """~all of the capacity live, radii spanning the three ranges the
     JAX package treats as classes (<= 26, 27-30, 31-38), random places
     in the three largest octaves of the real slab."""
-    from sift_tpu_torch.kernels.fused_stages import LANES
-    from sift_tpu_torch.kernels.window_gather import window_rows
-    from sift_tpu_torch.ops import descriptor as D
-    from sift_tpu_torch.ops import orientation as O
-    from sift_tpu_torch.ops.flatpyr import stack_pyramid
-
     cfg, dev = det.config, det.device
     k = cfg.num_features
     rng = np.random.default_rng(seed)
@@ -373,21 +441,7 @@ def synthetic_taps(det, gauss, seed=1):
         size=t(2.0 * scl * 2.0 ** octv, torch.float32),
         angle=t(rng.uniform(0, 360, k), torch.float32),
         valid=t(np.arange(k) < k - 16, torch.bool))   # valid-first
-    rmax = max(D.max_descr_radius(cfg), O.max_ori_radius(cfg))
-    slab = stack_pyramid(gauss, extra_rows=window_rows(rmax), copies=1,
-                         layer_lo=1, layer_hi=cfg.num_octave_layers + 1)
-    count = kp["valid"].to(torch.int32).sum()
-    ys0, xs0, par, rows = O.orientation_params(
-        slab, kp["octave"], kp["x"], kp["y"], kp["layer"], kp["size"],
-        kp["valid"], cfg)
-    ori = dict(values=slab.values, ys0=ys0, xs0=xs0, par=par, rows=rows,
-               lanes=LANES, count=count)
-    ys0, xs0, par, rows = D.descriptor_params(
-        slab, kp["octave"], kp["x"], kp["y"], kp["layer"], kp["size"],
-        kp["angle"], kp["valid"], cfg)
-    desc = dict(values=slab.values, ys0=ys0, xs0=xs0, par=par, rows=rows,
-                lanes=LANES, count=count)
-    return ori, desc
+    return stage_inputs(slab, kp, kp["valid"].to(torch.int32).sum(), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -399,14 +453,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one "
              "NVIDIA GPU")
-    from sift_tpu_torch import (SiftConfig, SiftDetector, build_plan,
-                                match_brute_force)
+    from sift_tpu_torch import SiftConfig, SiftDetector, match_brute_force
     from sift_tpu_torch.core.convert import result_to_numpy
     from sift_tpu_torch.kernels import build
+    from sift_tpu_torch.kernels import expand as EX
     from sift_tpu_torch.kernels import fused_detect as FD
     from sift_tpu_torch.kernels import fused_stages as FS
-    from sift_tpu_torch.perf.benchimg import bench_image
+    from sift_tpu_torch.kernels.window_gather import window_rows
+    from sift_tpu_torch.ops.descriptor import max_descr_radius
+    from sift_tpu_torch.ops.flatpyr import stack_pyramid
+    from sift_tpu_torch.ops.orientation import max_ori_radius
+    from sift_tpu_torch.ops.pyramid import gaussian_pyramid, plan_operators
+    from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES as
+                                              NUM_FEATURES,
+                                              FLAGSHIP_HEIGHT as HEIGHT,
+                                              FLAGSHIP_WIDTH as WIDTH,
+                                              bench_image)
     from sift_tpu_torch.perf.compare import pair_keypoints
+    from sift_tpu_torch.pipeline.detector import slab_copies
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -427,51 +491,63 @@ def main() -> int:
 
     # -- set-up: detector, frames, the main path's own kernel inputs --------
     cfg = SiftConfig(width=WIDTH, height=HEIGHT, num_features=NUM_FEATURES)
-    plan = build_plan(cfg)
-    taps: dict = {}
-    det = SiftDetector(cfg, plan=plan, taps=taps)
+    det = SiftDetector(cfg)
     img1 = bench_image(HEIGHT, WIDTH, seed=0)
     img2 = warp_image(img1)
     f1 = torch.as_tensor(img1, device=det.device)
     f2 = torch.as_tensor(img2, device=det.device)
     det.warm_up()
-    det.detect_and_compute(f1)
+    r0 = det.detect_and_compute(f1)
     torch.cuda.synchronize()
-    frame_taps = dict(taps)          # kernel inputs of frame 1
 
-    # -- kernels ----------------------------------------------------------
-    gauss = frame_taps["detect_records"]
-    syn_ori, syn_desc = synthetic_taps(det, gauss)
+    # -- kernels: each at the inputs the main path gave it on frame 1,
+    # rebuilt here by the ops the detector itself calls -------------------
+    gauss = gaussian_pyramid(det.plan, f1, plan_operators(det.plan,
+                                                          det.device))
+    rmax = max(max_descr_radius(cfg), max_ori_radius(cfg))
+    ncop = slab_copies(det.plan)
+    layers = dict(extra_rows=window_rows(rmax), layer_lo=1,
+                  layer_hi=cfg.num_octave_layers + 1)
+    base = stack_pyramid(gauss, copies=1, **layers).values
+    slab = stack_pyramid(gauss, copies=ncop, **layers)
+    frm_ori, frm_desc = frame_inputs(slab, r0, cfg)
+    syn_ori, syn_desc = synthetic_inputs(det, slab)
     k1 = check_detect(gauss, cfg)
-    k2 = check_orientation(frame_taps["orientation_hist"], "frame")
+    k5 = check_expand(base, ncop)
+    k2 = check_orientation(frm_ori, "frame")
     k2s = check_orientation(syn_ori, "synthetic_full")
-    k3 = check_descriptor(frame_taps["descriptor_hist"], "frame")
+    k3 = check_descriptor(frm_desc, "frame")
     k3s = check_descriptor(syn_desc, "synthetic_full", radius_classes=True)
     for main_e, syn_e in ((k2, k2s), (k3, k3s)):
         main_e["synthetic_full"] = {
             key: syn_e[key] for key in syn_e
             if key not in ("name", "route", "source", "replaces",
-                           "launches", "library_ms", "tolerance")}
+                           "launches", "launches_per_frame", "library_ms",
+                           "tolerance")}
         main_e["passed"] = main_e["passed"] and syn_e["passed"]
-    kernels = [k1, k2, k3]
+    kernels = [k1, k5, k2, k3]
 
     # -- main path --------------------------------------------------------
     torch.cuda.synchronize()
-    for d in (FD.launches, FD.plain_calls, FS.launches, FS.plain_calls):
+    for d in (FD.launches, FD.plain_calls, EX.launches, EX.plain_calls,
+              FS.launches, FS.plain_calls):
         for key in d:
             d[key] = 0
-    r1 = det.detect_and_compute(f1)
-    r2 = det.detect_and_compute(f2)
+    frames = (f1, f2)
+    r1, r2 = [det.detect_and_compute(f) for f in frames]
     matches = match_brute_force(r2.descriptors, r1.descriptors,
                                 r2.keypoints.valid, r1.keypoints.valid)
     torch.cuda.synchronize()
-    counts = {**FD.launches, **FS.launches}
-    plain = {**FD.plain_calls, **FS.plain_calls}
+    counts = {**FD.launches, **EX.launches, **FS.launches}
+    plain = {**FD.plain_calls, **EX.plain_calls, **FS.plain_calls}
     for e in kernels:
         e["launches"] = counts[e["name"]]
+        e["launches_per_frame"] = counts[e["name"]] / len(frames)
     say({"kernels": kernels})
-    expect = {"detect_records": 2 * cfg.num_octaves, "orientation_hist": 2,
-              "descriptor_hist": 2}
+    expect = {"detect_records": len(frames) * cfg.num_octaves,
+              "expand_lane_copies": len(frames),
+              "orientation_hist": len(frames),
+              "descriptor_hist": len(frames)}
     if counts != expect:
         fail(f"launch counts {counts} != expected {expect}")
     if any(plain.values()):
@@ -503,12 +579,12 @@ def main() -> int:
 
     # The same frame through the plain versions ON THE CARD.
     import dataclasses
-    det_plain = SiftDetector(dataclasses.replace(cfg, kernel_impl="torch"),
-                             plan=plan)
+    det_plain = SiftDetector(dataclasses.replace(cfg, kernel_impl="torch"))
     rp = det_plain.detect_and_compute(f1)
     torch.cuda.synchronize()
-    if not all({**FD.plain_calls, **FS.plain_calls}.values()) \
-            or {**FD.launches, **FS.launches} != counts:
+    if not all({**FD.plain_calls, **EX.plain_calls,
+                **FS.plain_calls}.values()) \
+            or {**FD.launches, **EX.launches, **FS.launches} != counts:
         fail("kernel_impl='torch' did not run the plain versions")
     a, b = result_to_numpy(r1), result_to_numpy(rp)
     ia, ib = pair_keypoints(a, b)

@@ -4,7 +4,7 @@ Same capabilities, sub-package layout and public layouts as the JAX
 package beside it (image ``[H, W]`` f32 0..255, keypoint fields
 ``[num_features]``, descriptors ``[num_features, 128]`` uint8, matches
 ``[Q]`` int32 with -1), written as plain functions on tensors with an
-explicit ``device``.  The three kernels of the detect+compute path are
+explicit ``device``.  The four kernels of the detect+compute path are
 hand-written CUDA C++ for sm_90a (``csrc/``), built with nvcc at first use
 and loaded with ctypes; each has a plain PyTorch version beside it that
 runs for CPU tensors.  The package imports ``torch`` and ``numpy`` only.

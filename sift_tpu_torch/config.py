@@ -79,8 +79,8 @@ class SiftConfig:
     # Lowe ratio applied to *squared* distances, matching the reference's
     # in-kernel hardcoded test (sift_func/Match.cu:171-175).
     match_ratio: float = 0.8
-    # Which version of the three hand-written kernels (record field,
-    # orientation histogram, descriptor histogram) runs: "cuda" (the CUDA
+    # Which version of the four hand-written kernels (record field, slab
+    # copies, orientation and descriptor histograms) runs: "cuda" (the CUDA
     # C++ kernels; the tensors must be on a CUDA device), "torch" (each
     # kernel's plain PyTorch version), or "auto" (cuda on a CUDA device,
     # torch on a CPU device).

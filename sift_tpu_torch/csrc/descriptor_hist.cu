@@ -6,9 +6,13 @@
 // (descriptor_fused / _desc_kernel / _desc_group).
 //
 // Bound on the H100: operations.  A keypoint of radius r covers up to
-// (2r+1)^2 pixels (r up to 38: ~5900) at ~90 float operations each, all
-// read from an L2-resident slab, against 512 bytes written: hundreds of
-// operations per byte of device-memory traffic.  What the design does
+// (2r+1)^2 pixels (r up to 38: ~5900).  The function needs ~22 float
+// operations to place a pixel in the rotated grid and ~106 more for one
+// inside it (gradient 6, polynomial atan2 32, weights 9, orientation bin
+// 6, three floors, 2+2+2 hat functions 30, 4 row x column products, 8
+// products and 8 accumulations), all read from an L2-resident slab,
+// against 512 bytes written: hundreds of operations per byte of
+// device-memory traffic.  What the design does
 // about it: work follows the frame's live keypoints and their actual
 // radii.  One 128-thread block per keypoint slot; blocks outside
 // [start, start + count) (read from device memory, no host sync) return

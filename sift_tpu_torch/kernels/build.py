@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_detect.cu", "orientation_hist.cu", "descriptor_hist.cu")
+SOURCES = ("fused_detect.cu", "expand.cu", "orientation_hist.cu",
+           "descriptor_hist.cu")
 HEADERS = ("common.cuh",)
 
 # -fmad=false (and no fast-math): a*b+c is NOT contracted, divisions and
@@ -110,6 +111,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sift_detect_records.argtypes = [p, p, i, i, i, f, i, f, f, f, f, p]
     lib.sift_detect_records.restype = i
+    lib.sift_expand_lane_copies.argtypes = [p, p, i, i, i, i, p]
+    lib.sift_expand_lane_copies.restype = i
     hist = [p, i, p, p, p, i, p, p, i, i, i, p]
     lib.sift_orientation_hist.argtypes = hist
     lib.sift_orientation_hist.restype = i

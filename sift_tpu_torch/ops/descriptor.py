@@ -25,9 +25,10 @@ import torch
 from sift_tpu_torch.config import (SIFT_DESCR_HIST_BINS, SIFT_DESCR_SCL_FCTR,
                                    SIFT_DESCR_WIDTH, SIFT_INT_DESCR_FCTR,
                                    SiftConfig)
-from sift_tpu_torch.kernels.fused_stages import LANES, descriptor_hist
+from sift_tpu_torch.kernels.fused_stages import descriptor_hist
 from sift_tpu_torch.kernels.window_gather import window_rows
-from sift_tpu_torch.ops.flatpyr import StackedPyramid, stacked_origins
+from sift_tpu_torch.ops.flatpyr import (StackedPyramid, stacked_origins,
+                                         window_lanes)
 
 _D = SIFT_DESCR_WIDTH        # 4 spatial cells per side
 _NB = SIFT_DESCR_HIST_BINS   # 8 orientation bins
@@ -45,7 +46,7 @@ def max_descr_radius(cfg: SiftConfig) -> int:
 def descriptor_params(slab: StackedPyramid, octave, x, y, layer, size,
                       angle, valid, cfg: SiftConfig):
     """Window origins and the per-keypoint parameter rows of the
-    descriptor kernel.  Returns (ys0, xs0, par [K, 13], rows)."""
+    descriptor kernel.  Returns (ys0, xs0, par [K, 13], rows, lanes)."""
     inv = torch.exp2(-octave.to(torch.float32))
     px = torch.round(x * inv).to(torch.int32)
     py = torch.round(y * inv).to(torch.int32)
@@ -79,7 +80,7 @@ def descriptor_params(slab: StackedPyramid, octave, x, y, layer, size,
         1.0 - pyf, hf - 2.0 - pyf, 1.0 - pxf, wf - 2.0 - pxf,
         es, radius, valid.to(torch.float32),
         cos_t, sin_t, ang, off.to(torch.float32)], dim=1)
-    return ys0, xs0, par, rows
+    return ys0, xs0, par, rows, window_lanes(slab.copies, rmax)
 
 
 def compute_descriptors_fused(slab: StackedPyramid, octave, x, y, layer,
@@ -92,9 +93,9 @@ def compute_descriptors_fused(slab: StackedPyramid, octave, x, y, layer,
 
     Returns (desc [K, 128] float32 pre-quantisation, nrm2 [K, 1]); invalid
     slots are zero."""
-    ys0, xs0, par, rows = descriptor_params(slab, octave, x, y, layer,
-                                            size, angle, valid, cfg)
-    hist = descriptor_hist(slab.values, ys0, xs0, par, rows, LANES,
+    ys0, xs0, par, rows, lanes = descriptor_params(
+        slab, octave, x, y, layer, size, angle, valid, cfg)
+    hist = descriptor_hist(slab.values, ys0, xs0, par, rows, lanes,
                            count=count, impl=impl)
     hist = torch.where(valid[:, None], hist, torch.zeros_like(hist))
     return finalize_descriptor(hist)

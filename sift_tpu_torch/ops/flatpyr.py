@@ -7,12 +7,14 @@ at its natural height, concatenated over rows into one [Hs, Ws] slab, so
 the orientation and descriptor kernels process keypoints of ALL octaves in
 one launch each.
 
-The JAX package replicates the slab 2-4x with lane shifts because TPU DMA
-origins must be 128-lane aligned.  A CUDA block loads from any address, so
-the port's main path uses ONE copy (``copies=1``) and places each window
-exactly at the patch corner.  ``copies`` in {2, 4} is still built (plain
-concatenation of shifted pads) so that tests can feed the kernels the JAX
-package's slab and origins.
+As in the JAX package the slab is replicated ``copies`` times with column
+shifts (kernels/expand.expand_lane_copies), so that every patch lies
+within the first 128/copies columns of a window whose origin is aligned
+to 128 columns on one of the copies; the detector uses the JAX detector's
+own copy count.  A CUDA block loads from any address, so a single-copy
+slab (``copies=1``: no expansion, each window exactly at its patch
+corner) serves the per-keypoint kernels just as well; the main path does
+not use it yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import List, NamedTuple
 
 import numpy as np
 import torch
+
+from sift_tpu_torch.kernels.expand import LANES, expand_lane_copies
 
 SUBLANE_ = 8
 
@@ -54,9 +58,19 @@ def _i32_table(vals: tuple, device: str) -> torch.Tensor:
     return torch.as_tensor(np.array(vals, np.int32), device=device)
 
 
+def window_lanes(copies: int, radius: int) -> int:
+    """Columns of a window that holds a patch of +-``radius`` with its
+    1-px gradient halo wherever ``stacked_origins`` may place it: the
+    patch starts up to 128/copies - 1 columns into the window (at column
+    0 on a single-copy slab)."""
+    off_max = LANES // copies - 1 if copies > 1 else 0
+    need = off_max + 2 * (radius + 1) + 1
+    return -(-need // LANES) * LANES
+
+
 def stack_pyramid(blocks: List[torch.Tensor], extra_rows: int = 0,
                   copies: int = 1, layer_lo: int = 0,
-                  layer_hi: int = 0) -> StackedPyramid:
+                  layer_hi: int = 0, impl: str = "auto") -> StackedPyramid:
     """blocks: per-octave [D, H_o, W_o], octave 0 largest.  ``extra_rows``:
     bottom margin >= the largest window row count, so windows that start
     inside the LAST plane stay in-bounds (reads past a plane's valid rows
@@ -64,7 +78,8 @@ def stack_pyramid(blocks: List[torch.Tensor], extra_rows: int = 0,
     consumers' bounds tests).  ``layer_lo/hi``: keep only planes
     [layer_lo, layer_hi) per octave (keypoints only ever reference
     Gaussian layers 1..L); out-of-range layer indices in row_off are
-    clamped (invalid keypoints may carry them)."""
+    clamped (invalid keypoints may carry them).  ``impl``: how the copies
+    are expanded (kernels/expand.expand_lane_copies)."""
     d, h0, w0 = blocks[0].shape
     dev = blocks[0].device
     layer_hi = layer_hi or d
@@ -92,14 +107,7 @@ def stack_pyramid(blocks: List[torch.Tensor], extra_rows: int = 0,
                                  device=dev))
         row += pad
     base = torch.cat(slabs, dim=0)
-    if copies > 1:
-        step = 128 // copies
-        vals = torch.cat(
-            [base] + [torch.nn.functional.pad(base[:, step * c:],
-                                              (0, step * c))
-                      for c in range(1, copies)], dim=0)
-    else:
-        vals = base
+    vals = expand_lane_copies(base, copies, impl) if copies > 1 else base
     i32 = lambda a: _i32_table(tuple(a), str(dev))
     return StackedPyramid(values=vals, row_off=i32(offs), height=i32(hs),
                           width=i32(wws), layers=d, copies=copies,

@@ -20,9 +20,10 @@ import torch
 from sift_tpu_torch.config import (SIFT_ORI_HIST_BINS, SIFT_ORI_PEAK_RATIO,
                                    SIFT_ORI_RADIUS, SIFT_ORI_SIG_FCTR,
                                    SiftConfig)
-from sift_tpu_torch.kernels.fused_stages import LANES, orientation_hist
+from sift_tpu_torch.kernels.fused_stages import orientation_hist
 from sift_tpu_torch.kernels.window_gather import window_rows
-from sift_tpu_torch.ops.flatpyr import StackedPyramid, stacked_origins
+from sift_tpu_torch.ops.flatpyr import (StackedPyramid, stacked_origins,
+                                         window_lanes)
 
 _NB = SIFT_ORI_HIST_BINS
 
@@ -38,7 +39,7 @@ def max_ori_radius(cfg: SiftConfig) -> int:
 def orientation_params(slab: StackedPyramid, octave, x, y, layer, size,
                        valid, cfg: SiftConfig):
     """Window origins and the per-keypoint parameter rows of the
-    orientation kernel.  Returns (ys0, xs0, par [K, 13], rows)."""
+    orientation kernel.  Returns (ys0, xs0, par [K, 13], rows, lanes)."""
     inv = torch.exp2(-octave.to(torch.float32))
     px = torch.round(x * inv).to(torch.int32)
     py = torch.round(y * inv).to(torch.int32)
@@ -63,7 +64,7 @@ def orientation_params(slab: StackedPyramid, octave, x, y, layer, size,
         1.0 - pyf, hf - 2.0 - pyf, 1.0 - pxf, wf - 2.0 - pxf,
         es, radius, valid.to(torch.float32),
         zero, zero, zero, off.to(torch.float32)], dim=1)
-    return ys0, xs0, par, rows
+    return ys0, xs0, par, rows, window_lanes(slab.copies, rmax)
 
 
 def orientation_histograms_fused(slab: StackedPyramid, octave, x, y, layer,
@@ -75,9 +76,9 @@ def orientation_histograms_fused(slab: StackedPyramid, octave, x, y, layer,
     stack for orientation_source="dog".  octave: [K] int32; x/y/size in
     base-image space.  ``count``: live keypoint count (valid-first order),
     a device scalar; rows past it are zero."""
-    ys0, xs0, par, rows = orientation_params(slab, octave, x, y, layer,
-                                             size, valid, cfg)
-    return orientation_hist(slab.values, ys0, xs0, par, rows, LANES,
+    ys0, xs0, par, rows, lanes = orientation_params(
+        slab, octave, x, y, layer, size, valid, cfg)
+    return orientation_hist(slab.values, ys0, xs0, par, rows, lanes,
                             count=count, impl=impl)
 
 

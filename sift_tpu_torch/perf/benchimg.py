@@ -14,6 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# The flagship frame: what ``chip_smoke.py`` and ``perf/profile.py`` run.
+FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT, FLAGSHIP_FEATURES = 752, 480, 5000
+
 
 def bench_image(h: int, w: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)

@@ -1,12 +1,13 @@
 """Where one frame's time goes on the GPU.
 
-    python -m sift_tpu_torch.perf.profile [--frames 10] [--out FILE.json]
+    python -m sift_tpu_torch.perf.profile [--out FILE.json]
 
 Runs ``SiftDetector.detect_and_compute`` on the 752x480 benchmark image
-(``num_features=5000``) under ``torch.profiler`` and prints one JSON object:
+(``num_features=5000``) for 10 frames under ``torch.profiler`` and prints
+one JSON object:
 frame time on the host clock, the device's busy time per frame (sum of all
 kernel and memcpy durations), its idle share, the number of device kernels
-per frame, the device time of the package's own three kernels and of the
+per frame, the device time of the package's own kernels and of the
 matrix products, and the device time by kernel name (top 25).  Needs a CUDA
 device; fails without one.
 """
@@ -22,16 +23,13 @@ import time
 import torch
 
 
-_OWN = ("detect_records_kernel", "orientation_hist_kernel",
-        "descriptor_hist_kernel")
+FRAMES = 10
+_OWN = ("detect_records_kernel", "expand_lane_copies_kernel",
+        "orientation_hist_kernel", "descriptor_hist_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--frames", type=int, default=10)
-    ap.add_argument("--width", type=int, default=752)
-    ap.add_argument("--height", type=int, default=480)
-    ap.add_argument("--num-features", type=int, default=5000)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -40,11 +38,14 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from sift_tpu_torch import SiftConfig, SiftDetector
-    from sift_tpu_torch.perf.benchimg import bench_image
+    from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES,
+                                              FLAGSHIP_HEIGHT,
+                                              FLAGSHIP_WIDTH, bench_image)
 
-    det = SiftDetector(SiftConfig(width=args.width, height=args.height,
-                                  num_features=args.num_features))
-    img = torch.as_tensor(bench_image(args.height, args.width, seed=0),
+    width, height, frames = FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT, FRAMES
+    det = SiftDetector(SiftConfig(width=width, height=height,
+                                  num_features=FLAGSHIP_FEATURES))
+    img = torch.as_tensor(bench_image(height, width, seed=0),
                           device=det.device)
     det.warm_up()
     for _ in range(3):
@@ -52,14 +53,14 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    for _ in range(args.frames):
+    for _ in range(frames):
         res = det.detect_and_compute(img)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / args.frames * 1e3
+    wall_ms = (time.perf_counter() - t0) / frames * 1e3
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.frames):
+        for _ in range(frames):
             det.detect_and_compute(img)
         torch.cuda.synchronize()
     # Device rows only: the host-side aten:: rows repeat the time of the
@@ -73,8 +74,8 @@ def main(argv=None) -> int:
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
         if dev_us > 0:
-            rows.append((e.key, dev_us / args.frames / 1e3,
-                         e.count / args.frames))
+            rows.append((e.key, dev_us / frames / 1e3,
+                         e.count / frames))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     smi = subprocess.run(
@@ -83,8 +84,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     out = {
         "card": smi, "torch": torch.__version__,
-        "width": args.width, "height": args.height,
-        "num_features": args.num_features, "frames": args.frames,
+        "width": width, "height": height,
+        "num_features": FLAGSHIP_FEATURES, "frames": frames,
         "keypoints": int(res.count),
         "frame_wall_ms": wall_ms,
         "device_busy_ms_per_frame": busy_ms,

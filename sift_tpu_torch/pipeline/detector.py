@@ -8,7 +8,8 @@ detection runs per octave (ONE record-field kernel launch each, shapes
 differ per octave); candidates of all octaves take ONE Newton walk; then
 keypoints of ALL octaves are compacted into ONE fixed-capacity set and the
 orientation and descriptor kernels each run once per frame over a
-row-stacked raw pyramid slab (ops/flatpyr.py).
+row-stacked raw pyramid slab whose shifted copies one expansion kernel
+writes (ops/flatpyr.py, kernels/expand.py).
 
 Everything is static-shape and nothing on the path synchronises with the
 host (no ``.item()``, ``.cpu()``, ``nonzero`` or boolean-mask indexing):
@@ -23,21 +24,20 @@ float32 matrix products run in full precision: building a detector sets
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
 
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.core.types import (Keypoints, SiftPlan, SiftResult,
-                                       build_plan, octave_plans)
-from sift_tpu_torch.kernels.fused_stages import (LANES, descriptor_hist,
+                                       build_plan)
+from sift_tpu_torch.kernels.fused_stages import (descriptor_hist,
                                                  orientation_hist)
 from sift_tpu_torch.kernels.window_gather import window_rows
 from sift_tpu_torch.ops import compact as C
 from sift_tpu_torch.ops import descriptor as D
 from sift_tpu_torch.ops import orientation as O
-from sift_tpu_torch.ops.flatpyr import stack_pyramid
+from sift_tpu_torch.ops.flatpyr import stack_pyramid, window_lanes
 from sift_tpu_torch.ops.pyramid import (dog_pyramid, gaussian_pyramid,
                                         plan_operators)
 from sift_tpu_torch.ops.records import (WalkState, candidates_from_records,
@@ -58,16 +58,19 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def slab_copies(plan: SiftPlan) -> int:
+    """Shifted copies of the stacked slab, by the JAX detector's rule: 2
+    when octave 0 spans at least 256 aligned columns, else 4."""
+    wp0 = -(-max(plan.octaves[0].width, 128) // 128) * 128
+    return 2 if wp0 >= 256 else 4
+
+
 def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
-                    kpt_cap: Optional[int] = None, device=None,
-                    taps: Optional[dict] = None):
+                    kpt_cap: Optional[int] = None, device=None):
     """Returns the function image [H, W] f32 (on ``device``) -> SiftResult.
 
     ``kpt_cap`` (a capacity tier of the JAX package) is not ported: only
-    ``None`` / ``num_features`` is accepted.  ``taps``: a dict that every
-    frame fills with the exact arguments each kernel wrapper was given
-    (references, no copies, no synchronisation) — for tools that hold a
-    kernel against its plain version on the main path's own inputs."""
+    ``None`` / ``num_features`` is accepted."""
     cfg = plan.config
     if kpt_cap is not None and int(kpt_cap) != cfg.num_features:
         raise NotImplementedError("capacity tiers are not ported yet")
@@ -78,10 +81,11 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
     torch.backends.cudnn.allow_tf32 = False
 
     rmax = max(D.max_descr_radius(cfg), O.max_ori_radius(cfg))
-    if 2 * (rmax + 1) + 1 > LANES:
+    ncop = slab_copies(plan)
+    if window_lanes(ncop, rmax) > 256:
         raise NotImplementedError(
             f"sigma={cfg.sigma}: patch radius {rmax} does not fit the "
-            f"kernels' {LANES}-column window")
+            "slab's 256 columns of window room")
     ops = plan_operators(plan, dev)      # operators moved to the device once
     nb = O._NB
     bins = torch.arange(nb, dtype=torch.int32, device=dev)
@@ -116,30 +120,26 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
         ksize, kresp = ref.size, ref.response
 
         # The per-keypoint kernels read RAW pixel windows off ONE
-        # row-stacked single-copy slab (keypoint layers 1..L only) and
-        # compute gradients + histograms on chip — no dense gradient
+        # row-stacked slab of shifted copies (keypoint layers 1..L only)
+        # and compute gradients + histograms on chip — no dense gradient
         # slabs.
         nl = cfg.num_octave_layers
         margin = window_rows(rmax)
-        slab_g = stack_pyramid(gauss, extra_rows=margin, copies=1,
-                               layer_lo=1, layer_hi=nl + 1)
+        slab_g = stack_pyramid(gauss, extra_rows=margin, copies=ncop,
+                               layer_lo=1, layer_hi=nl + 1, impl=impl)
         if cfg.orientation_source == "gaussian":
             ori_slab = slab_g
         else:
             ori_slab = stack_pyramid(dog_pyramid(gauss), extra_rows=margin,
-                                     copies=1, layer_lo=1, layer_hi=nl + 1)
+                                     copies=ncop, layer_lo=1,
+                                     layer_hi=nl + 1, impl=impl)
         # Live counts let the kernels skip every block past the frame's
         # actual keypoint count (compactions are valid-first).
         n_kp = val.to(torch.int32).sum()
-        ys0, xs0, par, rows = O.orientation_params(
+        ys0, xs0, par, rows, lanes = O.orientation_params(
             ori_slab, koct, kx, ky, klyr, ksize, val, cfg)
-        hist = orientation_hist(ori_slab.values, ys0, xs0, par, rows, LANES,
+        hist = orientation_hist(ori_slab.values, ys0, xs0, par, rows, lanes,
                                 count=n_kp, impl=impl)
-        if taps is not None:
-            taps["detect_records"] = list(gauss)
-            taps["orientation_hist"] = dict(
-                values=ori_slab.values, ys0=ys0, xs0=xs0, par=par,
-                rows=rows, lanes=LANES, count=n_kp)
         angles, peaks = O.orientation_peaks(hist, val, cfg)
 
         # Expansion: up to 36 oriented copies per keypoint
@@ -161,15 +161,11 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
             valid=evalid)
 
         n_desc = evalid.to(torch.int32).sum()
-        ys0, xs0, par, rows = D.descriptor_params(
+        ys0, xs0, par, rows, lanes = D.descriptor_params(
             slab_g, kps.octave, kps.x, kps.y, kps.layer, kps.size,
             kps.angle, kps.valid, cfg)
-        dhist = descriptor_hist(slab_g.values, ys0, xs0, par, rows, LANES,
+        dhist = descriptor_hist(slab_g.values, ys0, xs0, par, rows, lanes,
                                 count=n_desc, impl=impl)
-        if taps is not None:
-            taps["descriptor_hist"] = dict(
-                values=slab_g.values, ys0=ys0, xs0=xs0, par=par, rows=rows,
-                lanes=LANES, count=n_desc)
         dhist = torch.where(evalid[:, None], dhist,
                             torch.zeros_like(dhist))
         desc, nrm2 = D.finalize_descriptor(dhist)
@@ -201,12 +197,10 @@ class SiftDetector:
 
     def __init__(self, config: SiftConfig, quant_mode: str = "opencv",
                  device=None, tiers: tuple = (),
-                 plan: Optional[SiftPlan] = None,
-                 taps: Optional[dict] = None):
+                 plan: Optional[SiftPlan] = None):
         """``tiers`` (capacity tiers of the JAX package) are not ported:
-        only ``()`` is accepted.  ``plan``: a ready plan for ``config``
-        (e.g. core/convert.plan_from_numpy), else built here.  ``taps``:
-        see ``build_detect_fn``."""
+        only ``()`` is accepted.  ``plan``: a ready plan of this very
+        ``config`` (e.g. core/convert.plan_from_numpy), else built here."""
         if tuple(tiers):
             raise NotImplementedError("capacity tiers are not ported yet")
         self.config = config
@@ -214,15 +208,10 @@ class SiftDetector:
         if plan is None:
             plan = build_plan(config)
         elif plan.config != config:
-            # A given plan lends its operators; THIS config rules.
-            if [(o.height, o.width) for o in plan.octaves] != \
-                    [(o.height, o.width) for o in octave_plans(config)]:
-                raise ValueError("plan geometry does not match config")
-            plan = dataclasses.replace(plan, config=config,
-                                       octaves=octave_plans(config))
+            raise ValueError("plan was built for another config")
         self.plan = plan
         self._fn = build_detect_fn(self.plan, quant_mode,
-                                   device=self.device, taps=taps)
+                                   device=self.device)
         self.prev_result: Optional[SiftResult] = None  # frame t-1
         self.last_result: Optional[SiftResult] = None  # frame t
 

@@ -20,6 +20,7 @@ import sift_tpu
 import sift_tpu_torch as stt
 from conftest import synthetic_image, textured_image
 from sift_tpu_torch.core.convert import result_to_numpy
+from sift_tpu_torch.kernels import expand as FE
 from sift_tpu_torch.kernels import fused_detect as FD
 from sift_tpu_torch.kernels import fused_stages as FS
 from sift_tpu_torch.perf.compare import pair_keypoints
@@ -132,14 +133,16 @@ def test_detector_contract_errors_and_state():
         stt.SiftDetector(cfg, device="cpu", tiers=(32,))
     with pytest.raises(NotImplementedError):
         stt.build_detect_fn(stt.build_plan(cfg), kpt_cap=32, device="cpu")
-    taps = {}
-    det = stt.SiftDetector(cfg, device="cpu", taps=taps)
+    with pytest.raises(ValueError):             # a plan of another config
+        stt.SiftDetector(cfg, device="cpu", plan=stt.build_plan(
+            dataclasses.replace(cfg, num_features=32)))
+    det = stt.SiftDetector(cfg, device="cpu")
     assert det.warm_up() is True
     with pytest.raises(ValueError):
         det.detect_and_compute(np.zeros((10, 10), np.float32))
     assert det.prev_descriptors is None
-    launches = {**FD.launches, **FS.launches}
-    plain = {**FD.plain_calls, **FS.plain_calls}
+    launches = {**FD.launches, **FE.launches, **FS.launches}
+    plain = {**FD.plain_calls, **FE.plain_calls, **FS.plain_calls}
     rng = np.random.default_rng(0)
     r1 = det.detect_and_compute(rng.uniform(0, 255, (48, 64)))
     assert det.prev_descriptors is None
@@ -148,15 +151,13 @@ def test_detector_contract_errors_and_state():
     assert det.last_result is r2
     # On the CPU every kernel's plain version ran (once per octave for the
     # record field), and no CUDA kernel was launched.
-    assert {**FD.launches, **FS.launches} == launches
-    now = {**FD.plain_calls, **FS.plain_calls}
+    assert {**FD.launches, **FE.launches, **FS.launches} == launches
+    now = {**FD.plain_calls, **FE.plain_calls, **FS.plain_calls}
     assert now["detect_records"] - plain["detect_records"] \
         == 2 * cfg.num_octaves
     assert now["orientation_hist"] - plain["orientation_hist"] == 2
     assert now["descriptor_hist"] - plain["descriptor_hist"] == 2
-    assert set(taps) == {"detect_records", "orientation_hist",
-                         "descriptor_hist"}
-    assert len(taps["detect_records"]) == cfg.num_octaves
+    assert now["expand_lane_copies"] - plain["expand_lane_copies"] == 2
     # float32 descriptors and the "reference" quantisation
     det_f = stt.SiftDetector(
         dataclasses.replace(cfg, descriptor_dtype="float32"), device="cpu")

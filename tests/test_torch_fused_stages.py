@@ -4,7 +4,8 @@ The same ``(slab, ys0, xs0, par, rows)`` arrays go through the JAX
 package's Pallas kernels (interpret mode, as its own tests run them on the
 CPU) and through the plain versions of the port's CUDA kernels; then the
 host-level functions of both packages run on the same keypoints, the port
-on its single-copy slab and the JAX package on its own lane-shifted one.
+on a single-copy slab and the JAX package on its own lane-shifted one.  The
+slab's copy expansion is held against the JAX package's Pallas kernel too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +14,12 @@ import torch
 
 import sift_tpu
 import sift_tpu_torch as stt
+from sift_tpu.kernels import expand as JE
 from sift_tpu.kernels import fused_stages as JFS
 from sift_tpu.ops import descriptor as JD
 from sift_tpu.ops import flatpyr as JF
 from sift_tpu.ops import orientation as JO
+from sift_tpu_torch.kernels import expand as TE
 from sift_tpu_torch.kernels import fused_stages as TFS
 from sift_tpu_torch.kernels.window_gather import window_rows
 from sift_tpu_torch.ops import descriptor as TD
@@ -127,6 +130,48 @@ def test_stacked_slab_and_origins_match_jax(setup, copies):
         np.testing.assert_array_equal(xs0, np.maximum(px - rad - 1, 0))
 
 
+@pytest.mark.parametrize("copies", [2, 4])
+def test_expand_plain_vs_pallas_interpret(copies):
+    """expand_lane_copies_plain against the JAX package's Pallas kernel in
+    interpret mode on the same base slab: pure data movement, so exact."""
+    rng = np.random.default_rng(copies)
+    base = rng.normal(0, 1, (48, 384)).astype(np.float32)
+    calls = dict(TE.plain_calls)
+    launches = dict(TE.launches)
+    t = TE.expand_lane_copies(torch.from_numpy(base), copies)  # CPU -> plain
+    assert TE.plain_calls["expand_lane_copies"] \
+        == calls["expand_lane_copies"] + 1
+    assert TE.launches == launches
+    j = JE.expand_lane_copies(jnp.asarray(base), copies, interpret=True)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    step = 128 // copies
+    c = copies - 1
+    np.testing.assert_array_equal(t.numpy()[c * 48:(c + 1) * 48,
+                                            :384 - c * step],
+                                  base[:, c * step:])
+    assert (t.numpy()[c * 48:(c + 1) * 48, 384 - c * step:] == 0).all()
+
+
+def test_expand_wrapper_never_falls_back_and_window_lanes():
+    base = torch.zeros((8, 256))
+    with pytest.raises(ValueError):             # the kernel needs the card
+        TE.expand_lane_copies_cuda(base, 2)
+    with pytest.raises(ValueError):
+        TE.expand_lane_copies(base, 2, impl="cuda")
+    with pytest.raises(ValueError):
+        TE.expand_lane_copies_plain(base, 3)
+    with pytest.raises(ValueError):             # width not a multiple of 128
+        TE.expand_lane_copies_plain(torch.zeros((8, 200)), 2)
+    with pytest.raises(ValueError):
+        TE.expand_lane_copies_plain(base.to(torch.float64), 2)
+    # A patch of radius r is 2(r+1)+1 columns wide and starts up to
+    # 128/copies - 1 columns into its window.
+    assert TF.window_lanes(1, 38) == 128
+    assert TF.window_lanes(4, 38) == 128        # 31 + 79
+    assert TF.window_lanes(2, 38) == 256        # 63 + 79
+    assert TF.window_lanes(2, 16) == 128        # 63 + 35
+
+
 def _rel(a, b):
     return np.max(np.abs(a - b) / (np.abs(a) + 1e-3), axis=1)
 
@@ -139,10 +184,11 @@ def test_orientation_kernel_plain_vs_pallas_interpret(setup):
     s = setup
     slab = _tslab(s, 4)
     k = _tk(s)
-    ys0, xs0, par, rows = TO.orientation_params(
+    ys0, xs0, par, rows, lanes = TO.orientation_params(
         slab, k["octave"], k["x"], k["y"], k["layer"], k["size"],
         k["valid"], s["tcfg"])
     assert tuple(par.shape) == (K, TFS.NPAR) == (K, JFS.NPAR)
+    assert lanes == 128
     plain = TFS.orientation_hist_plain(slab.values, ys0, xs0, par, rows)
     rmax_o = TO.max_ori_radius(s["tcfg"])
     fused = JFS.orientation_hist_fused(
@@ -179,9 +225,10 @@ def test_descriptor_kernel_plain_vs_pallas_interpret(setup, copies,
     s = setup
     slab = _tslab(s, copies)
     k = _tk(s)
-    ys0, xs0, par, rows = TD.descriptor_params(
+    ys0, xs0, par, rows, lanes = TD.descriptor_params(
         slab, k["octave"], k["x"], k["y"], k["layer"], k["size"],
         k["angle"], k["valid"], s["tcfg"])
+    assert lanes == win_lanes      # the window width the slab's copies need
     plain = TFS.descriptor_hist_plain(slab.values, ys0, xs0, par, rows,
                                       lanes=win_lanes)
     fused = JFS.descriptor_fused(
@@ -225,7 +272,7 @@ def test_wrappers_dispatch_by_device_and_never_fall_back(setup):
     s = setup
     slab = _tslab(s, 1)
     k = _tk(s)
-    ys0, xs0, par, rows = TO.orientation_params(
+    ys0, xs0, par, rows, lanes = TO.orientation_params(
         slab, k["octave"], k["x"], k["y"], k["layer"], k["size"],
         k["valid"], s["tcfg"])
     launches = dict(TFS.launches)

@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package: the host-level orientation and
 descriptor functions (ops/orientation.py, ops/descriptor.py) of both
-packages on the same keypoints — the port on its single-copy slab with
+packages on the same keypoints — the port on a single-copy slab with
 corner-exact window origins, the JAX package on its own lane-shifted slab
 through its Pallas kernels in interpret mode.  (The kernel-level
 comparison on identical arrays is tests/test_torch_fused_stages.py, whose
