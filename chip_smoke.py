@@ -5,11 +5,18 @@
 
 Drives the port's main path — ``SiftDetector.detect_and_compute`` on two
 752x480 frames with ``num_features=5000``, then ``match_brute_force`` — and
-holds each hand-written CUDA kernel against its plain PyTorch version on
-the card, at the shapes the main path gives it.  Phases (one JSON line
-each): ``device``, ``build``, ``kernels``, ``main_path``; any failure exits
-non-zero.  Needs one CUDA device and ``nvcc``; imports ``sift_tpu_torch``,
-``torch`` and ``numpy`` only.  The last line of standard output is
+its further paths: the golden capture + per-stage replay at the same size
+(``perf/checkpoint.capture_golden``, ``perf/replay.Replayer``), one frame
+each through the detector's non-fused branch (``sigma=2.0``: 256-column
+windows; ``sigma=1.97``: 4 shifted copies), and the window-loading
+experiment (``perf/window_proto``).  Every hand-written CUDA kernel is held
+against its plain PyTorch version on the card, at the shapes its path gives
+it, and each path's launch counters are set to 0 just before it runs and
+read just after.  Phases (one JSON line each): ``device``, ``build``,
+``main_path``, ``replay``, ``flat_frame``, ``window_proto``, then the
+``kernels`` line; any failure exits non-zero.  Needs one CUDA device and
+``nvcc``; imports ``sift_tpu_torch``, ``torch`` and ``numpy`` only.  The
+last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -26,6 +33,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -196,14 +204,14 @@ def check_expand(base, copies):
 
 
 def finish_entry(*, name, source, replaces, shapes, max_abs_err, tolerance,
-                 passed, ms, plain_ms, bytes_, ops, extra):
+                 passed, ms, plain_ms, bytes_, ops, extra, library_ms=None):
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     e = dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=None, max_abs_err=max_abs_err, ms=ms,
              plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
              bound_by="bytes" if t_bytes >= t_ops else "operations",
-             library_ms=None, launches_per_frame=None, shapes=shapes,
+             library_ms=library_ms, launches_per_frame=None, shapes=shapes,
              tolerance=tolerance,
              passed=bool(passed), bytes=int(bytes_), operations=int(ops))
     e.update(extra)
@@ -444,6 +452,243 @@ def synthetic_inputs(det, slab, seed=1):
     return stage_inputs(slab, kp, kp["valid"].to(torch.int32).sum(), cfg)
 
 
+def check_gather(gauss0, cfg, seed=2):
+    """K4 at the shapes its paths give it: the replay's orientation stage
+    ([1024, 48, 256] windows from the [6, 480, 768] gradient block), its
+    descriptor stage ([512, 88, 256] from the packed block) and the flat
+    detector branch's 4-copy / 128-column windows.  Pure data movement, so
+    exactly equal to the plain version; origins come from the ops the
+    stages themselves call, at random keypoint places."""
+    from sift_tpu_torch.kernels import window_gather as WG
+    from sift_tpu_torch.ops import flatpyr as FP
+    from sift_tpu_torch.ops.descriptor import max_descr_radius
+    from sift_tpu_torch.ops.orientation import max_ori_radius
+    from sift_tpu_torch.perf.profile import device_ms
+
+    dev = gauss0.device
+    rng = np.random.default_rng(seed)
+    d, h, w = gauss0.shape
+    padded = FP.pad_pyramid([gauss0])
+    mag, _ = FP.dense_gradients_padded(padded)
+    packed = FP.dense_gradients_packed(padded)
+    cases = (("replay_orientation", mag, 1024, max_ori_radius(cfg)),
+             ("replay_descriptor", packed, 512, max_descr_radius(cfg)),
+             ("flat_branch_4_copies", FP.shift_copies(mag), 1024,
+              max_ori_radius(cfg)))
+    out = []
+    for label, src, k, radius in cases:
+        t = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+        cy, cx = t(rng.integers(0, h, k)), t(rng.integers(0, w, k))
+        layer = t(rng.integers(1, d - 2, k))
+        li, ys0, xs0, _, rows, lanes = FP.keypoint_window_origins(
+            src, torch.zeros_like(layer), layer, cy, cx, radius)
+        a = (src.values, li, ys0, xs0, rows, lanes)
+        ker = WG.gather_windows_cuda(*a)
+        pla = WG.gather_windows_plain(*a)
+        torch.cuda.synchronize()
+        exact = ker.shape == pla.shape and bool(torch.equal(ker, pla))
+        # The one PyTorch call that computes the same function.
+        yy = (ys0.to(torch.int64)[:, None]
+              + torch.arange(rows, device=dev))[:, :, None]
+        xx = (xs0.to(torch.int64)[:, None]
+              + torch.arange(lanes, device=dev))[:, None, :]
+        ll = li.to(torch.int64)[:, None, None]
+        lib = src.values[ll, yy, xx]
+        exact = exact and bool(torch.equal(lib, ker))
+        win_bytes = k * rows * lanes * 4
+        # Each input element read once (at most the slab), each output
+        # element written once, plus the origins.
+        bytes_ = min(win_bytes, src.values.numel() * 4) + win_bytes + 12 * k
+        out.append(dict(
+            label=label, values=list(src.values.shape),
+            windows=[k, rows, lanes], bit_exact=exact,
+            max_abs_err=float((ker - pla).abs().max()),
+            ms=time_ms(lambda: WG.gather_windows_cuda(*a)),
+            device_ms=device_ms(lambda: WG.gather_windows_cuda(*a),
+                                name="gather_windows_kernel"),
+            plain_ms=time_ms(lambda: WG.gather_windows_plain(*a)),
+            library_ms=time_ms(lambda: src.values[ll, yy, xx]),
+            bytes=bytes_, bytes_copied=2 * win_bytes,
+            bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3,
+            bound_ms_no_reuse=2 * win_bytes / PEAK_BYTES_PER_S * 1e3))
+    first = out[0]
+    return finish_entry(
+        name="gather_windows", source="sift_tpu_torch/csrc/window_gather.cu",
+        replaces="sift_tpu/kernels/window_gather.py:53",
+        shapes=dict(values=first["values"], windows=first["windows"]),
+        max_abs_err=max(c["max_abs_err"] for c in out),
+        tolerance="bit-exact (against the plain version and the indexing "
+                  "call), all three shapes",
+        passed=all(c["bit_exact"] for c in out), ms=first["ms"],
+        plain_ms=first["plain_ms"], bytes_=first["bytes"], ops=0,
+        library_ms=first["library_ms"],
+        extra=dict(device_ms=first["device_ms"], cases=out,
+                   bit_exact=all(c["bit_exact"] for c in out)))
+
+
+def check_window_proto():
+    """K6-K8 on the experiment's workload against the plain version."""
+    from sift_tpu_torch.perf import window_proto as WP
+    from sift_tpu_torch.perf.profile import device_ms
+
+    wl = WP.workload("cuda")
+    slab, ys0, xs0, par = wl["slab"], wl["ys0"], wl["xs0"], wl["par"]
+    rows, count = wl["rows"], wl["count"]
+    k = ys0.shape[0]
+    bytes_ = (min(WP.LIVE * rows * WP.LANES * 4, slab.numel() * 4)
+              + k * WP.LANES * 4 + 8 * k + 4)
+    runs = (
+        ("window_colsum_static", "scripts/dma_proto.py:86",
+         lambda: WP.window_colsum_static_cuda(slab, ys0, xs0, rows, count),
+         lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count), 0),
+        ("window_colsum_par", "scripts/dma_proto.py:123",
+         lambda: WP.window_colsum_par_cuda(slab, ys0, xs0, par, rows,
+                                           count),
+         lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count, par, 8,
+                                        name="window_colsum_par"),
+         WP.NPAR * 4 * k),
+        ("window_colsum_ring", "scripts/dma_proto.py:196",
+         lambda: WP.window_colsum_ring_cuda(slab, ys0, xs0, rows, count, 8,
+                                            4),
+         lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count,
+                                        name="window_colsum_ring"), 0))
+    entries = []
+    for name, replaces, fn, plain, more_bytes in runs:
+        ker, pla = fn(), plain()
+        torch.cuda.synchronize()
+        ok = (bool(torch.allclose(ker, pla, rtol=1e-5, atol=1e-4))
+              and bool((ker[WP.LIVE:] == 0).all()))
+        entries.append(finish_entry(
+            name=name, source="sift_tpu_torch/csrc/window_proto.cu",
+            replaces=replaces,
+            shapes=dict(slab=list(slab.shape), capacity=k, live=WP.LIVE,
+                        rows=rows, lanes=WP.LANES),
+            max_abs_err=float((ker - pla).abs().max()),
+            tolerance="allclose rtol 1e-5 atol 1e-4 (sums of 72 rows in "
+                      "another order); rows past count zero",
+            passed=ok, ms=time_ms(fn), plain_ms=time_ms(plain, reps=10,
+                                                        warm=2),
+            bytes_=bytes_ + more_bytes, ops=WP.LIVE * rows * WP.LANES,
+            extra=dict(device_ms=device_ms(fn, name="colsum_"))))
+    return entries
+
+
+def zero_counters(*modules) -> None:
+    for m in modules:
+        for d in (m.launches, m.plain_calls):
+            for key in d:
+                d[key] = 0
+
+
+def events_ms(fn):
+    """One call of ``fn`` between CUDA events; returns (result, ms)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def run_replay(cfg, img, WG):
+    """Golden capture on the card, then the seven replay stages on the
+    loaded triple.  Returns the phase line and K4's launch count."""
+    from sift_tpu_torch.perf.checkpoint import capture_golden, load_golden
+    from sift_tpu_torch.perf.replay import Replayer
+
+    zero_counters(WG)
+    with tempfile.TemporaryDirectory() as path:
+        _, capture_ms = events_ms(lambda: capture_golden(cfg, img, path))
+        n_capture = WG.launches["gather_windows"]
+        params, inputs, expected = load_golden(path)
+    rep = Replayer(params, inputs, expected)
+    results = rep.run_all()
+    torch.cuda.synchronize()
+    n_replay = WG.launches["gather_windows"] - n_capture
+    plain = WG.plain_calls["gather_windows"]
+    # Stage times: a second pass, after the verifying one warmed it up.
+    stage_ms = {name: events_ms(getattr(rep, f"run_{name}"))[1]
+                for name in rep.ALL}
+    failed = [name for name, (ok, _) in results.items() if not ok]
+    kcap = rep.plan.octaves[0].kpt_cap
+    per_pass = 2 * -(-kcap // 1024) + -(-kcap // 512)
+    line = {"phase": "replay", "width": cfg.width, "height": cfg.height,
+            "num_features": cfg.num_features, "octave0_kpt_cap": kcap,
+            "stages": {name: {"passed": ok, **info}
+                       for name, (ok, info) in results.items()},
+            "stages_passed": len(results) - len(failed),
+            "gather_windows_launches": {"capture": n_capture,
+                                        "replay": n_replay,
+                                        "expected_each": per_pass},
+            "plain_calls": plain, "capture_ms": capture_ms,
+            "stage_ms": stage_ms}
+    say(line)
+    if failed:
+        fail(f"replay stages failed: {failed}")
+    if n_capture != per_pass or n_replay != per_pass or plain:
+        fail(f"replay: gather_windows launched {n_capture} + {n_replay} "
+             f"times (expected {per_pass} each), plain version {plain}")
+    return n_capture + n_replay
+
+
+def run_flat_frames(cfg, frame, FD, WG):
+    """One frame through the detector's non-fused branch at two patch
+    radii, each against the same frame under kernel_impl="torch"."""
+    import dataclasses
+
+    from sift_tpu_torch import SiftDetector
+    from sift_tpu_torch.core.convert import result_to_numpy
+    from sift_tpu_torch.perf.compare import pair_keypoints
+
+    out = []
+    for sigma, copies in ((2.0, 1), (1.97, 4)):
+        c = dataclasses.replace(cfg, sigma=sigma)
+        det = SiftDetector(c)
+        det.detect_and_compute(frame)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(FD, WG)
+        res = det.detect_and_compute(frame)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        k1, k4 = FD.launches["detect_records"], WG.launches["gather_windows"]
+        plain = FD.plain_calls["detect_records"] \
+            + WG.plain_calls["gather_windows"]
+        frame_ms = time_ms(lambda: det.detect_and_compute(frame), reps=5,
+                           warm=0)
+        rp = SiftDetector(dataclasses.replace(c, kernel_impl="torch")) \
+            .detect_and_compute(frame)
+        torch.cuda.synchronize()
+        a, b = result_to_numpy(res), result_to_numpy(rp)
+        ia, ib = pair_keypoints(a, b)
+        paired = len(ia) / max(a["count"], b["count"], 1)
+        dd = np.abs(a["descriptors"][ia].astype(np.int32)
+                    - b["descriptors"][ib].astype(np.int32)).max(1) \
+            if len(ia) else np.zeros(0)
+        planes = cfg.num_octaves * (cfg.num_octave_layers + 3)
+        hp, wp = -(-cfg.height // 8) * 8, -(-cfg.width // 128) * 128
+        out.append(dict(
+            sigma=sigma, slab_copies=copies, keypoints=a["count"],
+            raw_keypoints=a["raw_count"], detect_records_launches=k1,
+            gather_windows_launches=k4, plain_calls=plain,
+            paired_with_plain_path=paired,
+            max_descriptor_diff_vs_plain_path=float(dd.max())
+            if len(dd) else None,
+            frame_ms=frame_ms, peak_memory_mib=peak,
+            gradient_slabs_mib=3 * copies * planes * hp * wp * 4 / 2 ** 20))
+        if k1 != cfg.num_octaves or k4 <= 0 or plain:
+            fail(f"flat frame sigma={sigma}: launches K1 {k1}, K4 {k4}, "
+                 f"plain {plain}")
+        if a["count"] <= 100 or paired < 0.99 or (len(dd) and dd.max() > 1):
+            fail(f"flat frame sigma={sigma}: {a['count']} keypoints, "
+                 f"{paired:.2%} paired with the plain path, max descriptor "
+                 f"diff {dd.max() if len(dd) else None}")
+    say({"phase": "flat_frame", "width": cfg.width, "height": cfg.height,
+         "num_features": cfg.num_features, "frames": out})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -459,6 +704,7 @@ def main() -> int:
     from sift_tpu_torch.kernels import expand as EX
     from sift_tpu_torch.kernels import fused_detect as FD
     from sift_tpu_torch.kernels import fused_stages as FS
+    from sift_tpu_torch.kernels import window_gather as WG
     from sift_tpu_torch.kernels.window_gather import window_rows
     from sift_tpu_torch.ops.descriptor import max_descr_radius
     from sift_tpu_torch.ops.flatpyr import stack_pyramid
@@ -469,11 +715,12 @@ def main() -> int:
                                               FLAGSHIP_HEIGHT as HEIGHT,
                                               FLAGSHIP_WIDTH as WIDTH,
                                               bench_image)
+    from sift_tpu_torch.perf import window_proto as WP
     from sift_tpu_torch.perf.compare import pair_keypoints
-    from sift_tpu_torch.pipeline.detector import slab_copies
+    from sift_tpu_torch.pipeline.detector import (full_precision_matmul,
+                                                  slab_copies)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision_matmul()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -525,14 +772,12 @@ def main() -> int:
                            "launches", "launches_per_frame", "library_ms",
                            "tolerance")}
         main_e["passed"] = main_e["passed"] and syn_e["passed"]
-    kernels = [k1, k5, k2, k3]
+    k4 = check_gather(gauss[0], cfg)
+    kernels = [k1, k5, k2, k3, k4] + check_window_proto()
 
     # -- main path --------------------------------------------------------
     torch.cuda.synchronize()
-    for d in (FD.launches, FD.plain_calls, EX.launches, EX.plain_calls,
-              FS.launches, FS.plain_calls):
-        for key in d:
-            d[key] = 0
+    zero_counters(FD, EX, FS)
     frames = (f1, f2)
     r1, r2 = [det.detect_and_compute(f) for f in frames]
     matches = match_brute_force(r2.descriptors, r1.descriptors,
@@ -540,10 +785,9 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = {**FD.launches, **EX.launches, **FS.launches}
     plain = {**FD.plain_calls, **EX.plain_calls, **FS.plain_calls}
-    for e in kernels:
+    for e in kernels[:4]:
         e["launches"] = counts[e["name"]]
         e["launches_per_frame"] = counts[e["name"]] / len(frames)
-    say({"kernels": kernels})
     expect = {"detect_records": len(frames) * cfg.num_octaves,
               "expand_lane_copies": len(frames),
               "orientation_hist": len(frames),
@@ -552,10 +796,6 @@ def main() -> int:
         fail(f"launch counts {counts} != expected {expect}")
     if any(plain.values()):
         fail(f"plain versions ran on the main path: {plain}")
-    bad = [e["name"] for e in kernels if not e["passed"]]
-    if bad:
-        fail(f"kernels disagree with their plain versions: {bad}")
-
     n1, n2 = int(r1.count), int(r2.count)
     for r, n in ((r1, n1), (r2, n2)):
         if not (r.descriptors.is_cuda and r.keypoints.x.is_cuda):
@@ -618,6 +858,28 @@ def main() -> int:
          "plain_path_frame_ms": plain_frame_ms, "match_ms": match_ms,
          "peak_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
          "card": smi})
+
+    # -- the further paths, each with its counters set to 0 just before ----
+    k4["launches"] = run_replay(cfg, img1, WG)
+    k4["launches_flat_frames"] = [
+        f["gather_windows_launches"] for f in run_flat_frames(cfg, f1, FD,
+                                                              WG)]
+    zero_counters(WP)
+    proto = WP.run_experiment("cuda")
+    torch.cuda.synchronize()
+    say({"phase": "window_proto", **proto, "launches": dict(WP.launches)})
+    if not proto["ok"]:
+        fail("window_proto: a loading scheme disagrees with the plain "
+             "version or with another scheme")
+    for e in kernels[5:]:
+        e["launches"] = WP.launches[e["name"]]
+    say({"kernels": kernels})
+    bad = [e["name"] for e in kernels if not e["passed"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+    idle = [e["name"] for e in kernels if not e["launches"]]
+    if idle:
+        fail(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)
     say({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

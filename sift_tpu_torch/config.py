@@ -79,9 +79,9 @@ class SiftConfig:
     # Lowe ratio applied to *squared* distances, matching the reference's
     # in-kernel hardcoded test (sift_func/Match.cu:171-175).
     match_ratio: float = 0.8
-    # Which version of the four hand-written kernels (record field, slab
-    # copies, orientation and descriptor histograms) runs: "cuda" (the CUDA
-    # C++ kernels; the tensors must be on a CUDA device), "torch" (each
+    # Which version of the hand-written kernels (record field, slab copies,
+    # orientation and descriptor histograms, window copy) runs: "cuda" (the
+    # CUDA C++ kernels; the tensors must be on a CUDA device), "torch" (each
     # kernel's plain PyTorch version), or "auto" (cuda on a CUDA device,
     # torch on a CPU device).
     kernel_impl: str = "auto"

@@ -73,6 +73,20 @@ def plan_from_numpy(cfg: dict, arrays: Dict[str, object]) -> SiftPlan:
     return plan
 
 
+def padded_pyramid_from_numpy(values, height, width, layers: int,
+                              copies: int = 1, device=None):
+    """ops/flatpyr.PaddedPyramid from numpy: ``values`` [copies*O*D, Hp, Wp]
+    float32, per-octave valid ``height``/``width`` [O], the static layer
+    count D and the shifted-copy count — the fields of the JAX package's
+    PaddedPyramid, so both packages' stages can be fed the same slab."""
+    from sift_tpu_torch.ops.flatpyr import PaddedPyramid
+    t = lambda a, dt: torch.as_tensor(np.array(a), device=device).to(dt)
+    return PaddedPyramid(values=t(values, torch.float32),
+                         height=t(height, torch.int32),
+                         width=t(width, torch.int32),
+                         layers=int(layers), copies=int(copies))
+
+
 _KP_DTYPES = dict(x=torch.float32, y=torch.float32, layer=torch.int32,
                   octave=torch.int32, xi=torch.float32, size=torch.float32,
                   response=torch.float32, angle=torch.float32,

@@ -23,7 +23,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_detect.cu", "expand.cu", "orientation_hist.cu",
-           "descriptor_hist.cu")
+           "descriptor_hist.cu", "window_gather.cu", "window_proto.cu")
 HEADERS = ("common.cuh",)
 
 # -fmad=false (and no fast-math): a*b+c is NOT contracted, divisions and
@@ -118,6 +118,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sift_orientation_hist.restype = i
     lib.sift_descriptor_hist.argtypes = hist
     lib.sift_descriptor_hist.restype = i
+    lib.sift_gather_windows.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.sift_gather_windows.restype = i
+    lib.sift_window_colsum_static.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                              p]
+    lib.sift_window_colsum_static.restype = i
+    lib.sift_window_colsum_par.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           p]
+    lib.sift_window_colsum_par.restype = i
+    lib.sift_window_colsum_ring.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            i, p]
+    lib.sift_window_colsum_ring.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,6 +1,7 @@
 """3-D DoG extrema detection.
 
-Counterpart of ``sift_tpu/ops/peaks.py`` (``peak_mask``): a pixel is a
+Counterpart of ``sift_tpu/ops/peaks.py`` (``peak_mask``,
+``find_candidates``): a pixel is a
 candidate when |v| > threshold and v is a (>=/<=) extremum over its 26
 neighbours across three adjacent DoG layers, within an image border margin
 (the capability of the reference's ``findPeaks3D``, MatOps.cu:40-182).
@@ -16,6 +17,8 @@ package's -inf/+inf padding at every pixel.
 from __future__ import annotations
 
 import torch
+
+from sift_tpu_torch.ops.compact import stream_compact
 
 
 def clamp_pad(a: torch.Tensor) -> torch.Tensor:
@@ -59,3 +62,18 @@ def peak_mask(dog: torch.Tensor, threshold: float, border: int,
     inb = ((ys >= border) & (ys < h - border)
            & (xs >= border) & (xs < w - border))
     return mask & inb[None], c.abs()
+
+
+def find_candidates(dog: torch.Tensor, threshold: float, border: int,
+                    cap: int):
+    """Returns candidate (x, y, layer, valid) tensors of length ``cap``:
+    the first ``cap`` extrema in (layer, y, x) order.  ``layer`` is the
+    DoG layer index (1..D-2), matching the reference's candidateKpts z
+    (MatOps.cu:177)."""
+    h, w = dog.shape[1], dog.shape[2]
+    mask, _ = peak_mask(dog, threshold, border)
+    idx, valid = stream_compact(mask.reshape(-1), cap)
+    lyr = idx // (h * w) + 1
+    rem = idx % (h * w)
+    return ((rem % w).to(torch.int32), (rem // w).to(torch.int32),
+            lyr.to(torch.int32), valid)

@@ -25,7 +25,45 @@ import torch
 
 FRAMES = 10
 _OWN = ("detect_records_kernel", "expand_lane_copies_kernel",
-        "orientation_hist_kernel", "descriptor_hist_kernel")
+        "orientation_hist_kernel", "descriptor_hist_kernel",
+        "gather_windows_kernel")
+
+
+def device_rows(prof, calls: int):
+    """(kernel name, device ms per call, launches per call) of a finished
+    ``torch.profiler`` run, largest first.  Device rows only: the
+    host-side aten:: rows repeat the time of the kernels they launched."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((e.key, dev_us / calls / 1e3, e.count / calls))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def device_ms(fn, calls: int = 10, name: str = ""):
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels and copies it puts on the card whose name contains ``name``
+    (all of them by default), from ``torch.profiler`` over ``calls`` calls
+    (after two warm-up calls).  None if the profiler saw no such device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in device_rows(prof, calls) if name in r[0]]
+    return sum(r[1] for r in rows) if rows else None
 
 
 def main(argv=None) -> int:
@@ -63,20 +101,7 @@ def main(argv=None) -> int:
         for _ in range(frames):
             det.detect_and_compute(img)
         torch.cuda.synchronize()
-    # Device rows only: the host-side aten:: rows repeat the time of the
-    # kernels they launched.
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((e.key, dev_us / frames / 1e3,
-                         e.count / frames))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof, frames)
     busy_ms = sum(r[1] for r in rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,7 @@
 """The SIFT pipeline orchestrator — the public detect-and-compute API.
 
-Counterpart of ``sift_tpu/pipeline/detector.py`` (the fused branch of
-``build_detect_fn`` and ``SiftDetector``).
+Counterpart of ``sift_tpu/pipeline/detector.py`` (``build_detect_fn`` and
+``SiftDetector``).
 
 Pipeline shape: the pyramid is a short chain of large matrix products;
 detection runs per octave (ONE record-field kernel launch each, shapes
@@ -9,17 +9,22 @@ differ per octave); candidates of all octaves take ONE Newton walk; then
 keypoints of ALL octaves are compacted into ONE fixed-capacity set and the
 orientation and descriptor kernels each run once per frame over a
 row-stacked raw pyramid slab whose shifted copies one expansion kernel
-writes (ops/flatpyr.py, kernels/expand.py).
+writes (ops/flatpyr.py, kernels/expand.py).  That per-keypoint window
+contract holds for patch radii up to 46 (the JAX detector's rule).  A
+configuration with a larger radius (``sigma >= 1.96`` with the default
+octave layers) takes the non-fused stages instead: dense gradient pyramids
+at a uniform padded shape, one aligned window copy per keypoint
+(kernels/window_gather.py), histograms by batched matrix products — with 4
+shifted copies and 128-column windows while the radius is at most 47,
+unshifted 256-column windows above.
 
 Everything is static-shape and nothing on the path synchronises with the
 host (no ``.item()``, ``.cpu()``, ``nonzero`` or boolean-mask indexing):
 counts stay on the device, so the frame can later be captured in a CUDA
 graph.  Capacity tiers and graph capture are not ported yet.
 
-float32 matrix products run in full precision: building a detector sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False`` (the JAX pyramid runs at
-``Precision.HIGHEST``).
+float32 matrix products run in full precision: building a detector calls
+``full_precision_matmul`` (the JAX pyramid runs at ``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ from sift_tpu_torch.kernels.window_gather import window_rows
 from sift_tpu_torch.ops import compact as C
 from sift_tpu_torch.ops import descriptor as D
 from sift_tpu_torch.ops import orientation as O
-from sift_tpu_torch.ops.flatpyr import stack_pyramid, window_lanes
+from sift_tpu_torch.ops.flatpyr import (dense_gradients_packed,
+                                         dense_gradients_padded, pad_pyramid,
+                                         shift_copies, stack_pyramid)
 from sift_tpu_torch.ops.pyramid import (dog_pyramid, gaussian_pyramid,
                                         plan_operators)
 from sift_tpu_torch.ops.records import (WalkState, candidates_from_records,
@@ -56,6 +63,23 @@ def resolve_device(device) -> torch.device:
                 "PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def full_precision_matmul() -> None:
+    """Switch TF32 off for matrix products and cuDNN, process-wide.  Every
+    entry point that runs the pyramid or a histogram contraction (a
+    detector, a golden capture, a replayer) calls this where it is built."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# Largest patch radius the per-keypoint kernels' window contract holds
+# (patch + gradient halo + the residual column offset within one aligned
+# window), the 128-column shifted-copy contract of the non-fused stages,
+# and their unshifted 256-column window (origin aligned down to 128).
+FUSED_MAX_RADIUS = 46
+FLAT_SHIFTED_MAX_RADIUS = 47
+FLAT_MAX_RADIUS = 63
 
 
 def slab_copies(plan: SiftPlan) -> int:
@@ -77,15 +101,17 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
     kcap = cfg.num_features
     dev = resolve_device(device)
     impl = resolve_kernel_impl(cfg.kernel_impl, dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision_matmul()
 
     rmax = max(D.max_descr_radius(cfg), O.max_ori_radius(cfg))
     ncop = slab_copies(plan)
-    if window_lanes(ncop, rmax) > 256:
+    fused = rmax <= FUSED_MAX_RADIUS
+    if rmax > FLAT_MAX_RADIUS:
         raise NotImplementedError(
-            f"sigma={cfg.sigma}: patch radius {rmax} does not fit the "
-            "slab's 256 columns of window room")
+            f"sigma={cfg.sigma}: patch radius {rmax} does not fit a "
+            "256-column window")
+    shift = shift_copies if rmax <= FLAT_SHIFTED_MAX_RADIUS \
+        else (lambda p: p)
     ops = plan_operators(plan, dev)      # operators moved to the device once
     nb = O._NB
     bins = torch.arange(nb, dtype=torch.int32, device=dev)
@@ -119,27 +145,42 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
         kx, ky, klyr, kxi = ref.x, ref.y, ref.layer, ref.xi
         ksize, kresp = ref.size, ref.response
 
-        # The per-keypoint kernels read RAW pixel windows off ONE
-        # row-stacked slab of shifted copies (keypoint layers 1..L only)
-        # and compute gradients + histograms on chip — no dense gradient
-        # slabs.
-        nl = cfg.num_octave_layers
-        margin = window_rows(rmax)
-        slab_g = stack_pyramid(gauss, extra_rows=margin, copies=ncop,
-                               layer_lo=1, layer_hi=nl + 1, impl=impl)
-        if cfg.orientation_source == "gaussian":
-            ori_slab = slab_g
-        else:
-            ori_slab = stack_pyramid(dog_pyramid(gauss), extra_rows=margin,
-                                     copies=ncop, layer_lo=1,
-                                     layer_hi=nl + 1, impl=impl)
-        # Live counts let the kernels skip every block past the frame's
-        # actual keypoint count (compactions are valid-first).
         n_kp = val.to(torch.int32).sum()
-        ys0, xs0, par, rows, lanes = O.orientation_params(
-            ori_slab, koct, kx, ky, klyr, ksize, val, cfg)
-        hist = orientation_hist(ori_slab.values, ys0, xs0, par, rows, lanes,
-                                count=n_kp, impl=impl)
+        if fused:
+            # The per-keypoint kernels read RAW pixel windows off ONE
+            # row-stacked slab of shifted copies (keypoint layers 1..L
+            # only) and compute gradients + histograms on chip — no dense
+            # gradient slabs.
+            nl = cfg.num_octave_layers
+            margin = window_rows(rmax)
+            slab_g = stack_pyramid(gauss, extra_rows=margin, copies=ncop,
+                                   layer_lo=1, layer_hi=nl + 1, impl=impl)
+            if cfg.orientation_source == "gaussian":
+                ori_slab = slab_g
+            else:
+                ori_slab = stack_pyramid(dog_pyramid(gauss),
+                                         extra_rows=margin, copies=ncop,
+                                         layer_lo=1, layer_hi=nl + 1,
+                                         impl=impl)
+            # Live counts let the kernels skip every block past the
+            # frame's actual keypoint count (compactions are valid-first).
+            ys0, xs0, par, rows, lanes = O.orientation_params(
+                ori_slab, koct, kx, ky, klyr, ksize, val, cfg)
+            hist = orientation_hist(ori_slab.values, ys0, xs0, par, rows,
+                                    lanes, count=n_kp, impl=impl)
+        else:
+            # Dense gradients once per frame on the padded uniform stack.
+            # The descriptor reads a PACKED (mag, ori) slab — one window
+            # copy per keypoint; orientation keeps the full-precision pair
+            # (its 1-degree parity gate is sensitive to quantisation).
+            padded_gauss = pad_pyramid(gauss)
+            gradf = shift(dense_gradients_packed(padded_gauss))
+            o_mag, o_ori = dense_gradients_padded(
+                padded_gauss if cfg.orientation_source == "gaussian"
+                else pad_pyramid(dog_pyramid(gauss)))
+            hist = O.orientation_histograms_flat(
+                shift(o_mag), shift(o_ori), koct, kx, ky, klyr, ksize, val,
+                cfg)
         angles, peaks = O.orientation_peaks(hist, val, cfg)
 
         # Expansion: up to 36 oriented copies per keypoint
@@ -161,14 +202,19 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
             valid=evalid)
 
         n_desc = evalid.to(torch.int32).sum()
-        ys0, xs0, par, rows, lanes = D.descriptor_params(
-            slab_g, kps.octave, kps.x, kps.y, kps.layer, kps.size,
-            kps.angle, kps.valid, cfg)
-        dhist = descriptor_hist(slab_g.values, ys0, xs0, par, rows, lanes,
-                                count=n_desc, impl=impl)
-        dhist = torch.where(evalid[:, None], dhist,
-                            torch.zeros_like(dhist))
-        desc, nrm2 = D.finalize_descriptor(dhist)
+        if fused:
+            ys0, xs0, par, rows, lanes = D.descriptor_params(
+                slab_g, kps.octave, kps.x, kps.y, kps.layer, kps.size,
+                kps.angle, kps.valid, cfg)
+            dhist = descriptor_hist(slab_g.values, ys0, xs0, par, rows,
+                                    lanes, count=n_desc, impl=impl)
+            dhist = torch.where(evalid[:, None], dhist,
+                                torch.zeros_like(dhist))
+            desc, nrm2 = D.finalize_descriptor(dhist)
+        else:
+            desc, nrm2 = D.compute_descriptors_flat(
+                gradf, kps.octave, kps.x, kps.y, kps.layer, kps.size,
+                kps.angle, kps.valid, cfg)
         desc = D.quantize_descriptor(desc, nrm2, quant_mode)
         desc = torch.where(evalid[:, None], desc, torch.zeros_like(desc))
         if quant_mode == "opencv" and cfg.descriptor_dtype == "uint8":
