@@ -46,6 +46,34 @@ __device__ __forceinline__ float atan2_deg(float dy, float dx) {
   return (dy < 0.0f ? -r : r) * F(57.29577951308232);
 }
 
+// An integer argument that is either a value or a 0-d tensor on the card
+// (read in the kernel, so the host never synchronises): ``bytes`` is 4 or
+// 8 for an int32 / int64 tensor at ``ptr``, 0 for the value ``val``.
+struct DevInt {
+  const void* ptr;
+  int bytes;
+  long long val;
+};
+
+__device__ __forceinline__ long long read_int(const DevInt a) {
+  if (a.bytes == 4) return *(const int*)a.ptr;
+  if (a.bytes == 8) return *(const long long*)a.ptr;
+  return a.val;
+}
+
+// Rows [lo, hi) of a K-row output that a per-keypoint kernel computes:
+// [start, start + min(count, K)) cut to [0, K).
+__device__ __forceinline__ void live_rows(const DevInt count,
+                                          const DevInt start, int K,
+                                          int* lo, int* hi) {
+  long long c = read_int(count), s = read_int(start);
+  c = c < K ? c : K;
+  long long a = s > 0 ? s : 0, b = s + c;
+  b = b < K ? b : K;
+  *lo = (int)(a < K ? a : K);
+  *hi = (int)(b > *lo ? b : *lo);
+}
+
 // Per-keypoint parameter row shared by the orientation and descriptor
 // kernels (the JAX package's layout, kernels/fused_stages.py):
 //  0 dy0 (window row 0 - cy)   1 dx0 (window col 0 - cx)

@@ -12,7 +12,7 @@
 // time.  What the design does about it: the work is made proportional to
 // the frame, not to the capacity.  One 64-thread block per keypoint slot;
 // a block past the live count (read from device memory, no host sync)
-// returns at once; threads stride over only the pixels inside the
+// zeroes its row and returns; threads stride over only the pixels inside the
 // keypoint's OWN radius and image bounds, not the static window; bins
 // are per-warp private in shared memory (shared atomicAdd), reduced in a
 // fixed order at the end.  f32 accumulation throughout.
@@ -27,20 +27,25 @@
 #define ORI_WARPS (ORI_THREADS / 32)
 
 __global__ void __launch_bounds__(ORI_THREADS)
-orientation_hist_kernel(const float* __restrict__ slab, int ws,
+orientation_hist_kernel(const float* __restrict__ slab, int hs, int ws,
                         const int* __restrict__ ys0,
                         const int* __restrict__ xs0,
                         const float* __restrict__ par, int npar,
-                        const int* __restrict__ cnt,
-                        float* __restrict__ out, int rows, int lanes) {
+                        const DevInt count, const DevInt start,
+                        float* __restrict__ out, int K, int rows,
+                        int lanes) {
   const int k = blockIdx.x;
-  const int count = cnt[0], start = cnt[1];
-  if (k < start || k >= start + count) return;  // count gating
+  const int tid = threadIdx.x;
+  float* orow = out + (size_t)k * ORI_BINS;
+  int lo, hi;
+  live_rows(count, start, K, &lo, &hi);
+  if (k < lo || k >= hi) {  // count gating: the row is zero
+    if (tid < ORI_BINS) orow[tid] = 0.0f;
+    return;
+  }
 
   __shared__ float bins[ORI_WARPS][ORI_BINS];
-  const int tid = threadIdx.x;
   const KpWindow kw = load_window(par + (size_t)k * npar, rows, lanes);
-  float* orow = out + (size_t)k * ORI_BINS;
   if (!(kw.vld > 0.0f)) {
     if (tid < ORI_BINS) orow[tid] = 0.0f;
     return;
@@ -52,7 +57,10 @@ orientation_hist_kernel(const float* __restrict__ slab, int ws,
   const int nrow = kw.i_hi - kw.i_lo + 1;
   const int ncol = kw.p_hi - kw.p_lo + 1;
   if (nrow > 0 && ncol > 0) {
-    const float* base = slab + (size_t)ys0[k] * ws + xs0[k];
+    // Origins clamped into the slab, so no read can leave it.
+    const int y0 = min(max(ys0[k], 0), hs - rows);
+    const int x0 = min(max(xs0[k], 0), ws - lanes);
+    const float* base = slab + (size_t)y0 * ws + x0;
     float* wbins = bins[tid >> 5];
     const int total = nrow * ncol;
     for (int t = tid; t < total; t += ORI_THREADS) {
@@ -89,19 +97,25 @@ orientation_hist_kernel(const float* __restrict__ slab, int ws,
   }
 }
 
-// slab: [hs, ws] f32; ys0/xs0: [K] i32 window origins with
-// 0 <= ys0 <= hs - rows and 0 <= xs0 <= ws - lanes (the wrapper clamps);
-// par: [K, npar] f32; cnt: [2] i32 = (live count, start); out: [K, 36]
-// f32, rows outside [start, start + count) untouched.  Launches on
-// ``stream``, does not synchronise; returns cudaGetLastError().
-SIFT_API int sift_orientation_hist(const void* slab, int ws,
+// slab: [hs, ws] f32; ys0/xs0: [K] i32 window origins, clamped here to
+// [0, hs - rows] x [0, ws - lanes]; par: [K, npar] f32; count / start:
+// each a value (bytes 0) or an int32 / int64 on the card (bytes 4 / 8 at
+// ptr); out: [K, 36] f32, rows outside [start, start + count) written 0.
+// Launches on ``stream``, does not synchronise; returns
+// cudaGetLastError().
+SIFT_API int sift_orientation_hist(const void* slab, int hs, int ws,
                                    const void* ys0, const void* xs0,
                                    const void* par, int npar,
-                                   const void* cnt, void* out, int K,
+                                   const void* count_ptr, int count_bytes,
+                                   long long count_val,
+                                   const void* start_ptr, int start_bytes,
+                                   long long start_val, void* out, int K,
                                    int rows, int lanes, void* stream) {
   if (K <= 0) return 0;
+  const DevInt count = {count_ptr, count_bytes, count_val};
+  const DevInt start = {start_ptr, start_bytes, start_val};
   orientation_hist_kernel<<<K, ORI_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)slab, ws, (const int*)ys0, (const int*)xs0,
-      (const float*)par, npar, (const int*)cnt, (float*)out, rows, lanes);
+      (const float*)slab, hs, ws, (const int*)ys0, (const int*)xs0,
+      (const float*)par, npar, count, start, (float*)out, K, rows, lanes);
   return (int)cudaGetLastError();
 }

@@ -109,11 +109,15 @@ def _build(target: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sift_detect_records.argtypes = [p, p, i, i, i, f, i, f, f, f, f, p]
+    ll = ctypes.c_longlong
+    lib.sift_detect_records.argtypes = [ctypes.POINTER(ll), i, i, i, f, i,
+                                        f, f, f, f, p]
     lib.sift_detect_records.restype = i
     lib.sift_expand_lane_copies.argtypes = [p, p, i, i, i, i, p]
     lib.sift_expand_lane_copies.restype = i
-    hist = [p, i, p, p, p, i, p, p, i, i, i, p]
+    # slab, hs, ws, ys0, xs0, par, npar, count (ptr, bytes, value),
+    # start (ptr, bytes, value), out, K, rows, lanes, stream
+    hist = [p, i, i, p, p, p, i, p, i, ll, p, i, ll, p, i, i, i, p]
     lib.sift_orientation_hist.argtypes = hist
     lib.sift_orientation_hist.restype = i
     lib.sift_descriptor_hist.argtypes = hist

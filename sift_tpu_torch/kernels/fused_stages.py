@@ -19,12 +19,14 @@ par[k,9:12]``.  Column 12 (a TPU lane offset) is ignored.  Gradients are
 central differences inside the window, so only its interior
 ``[1, rows-2] x [1, lanes-2]`` can count: a keypoint whose radius exceeds
 the window (out of contract; the pipeline never emits one) is truncated
-there and stays finite.  Origins need no alignment; the wrappers clamp
-them into the slab so that no read can leave it.
+there and stays finite.  Origins need no alignment; they are clamped into
+the slab (by the kernels as they load them, by the plain versions in
+PyTorch) so that no read can leave it.
 
 Only rows ``[start, start + count)`` are computed (``count``/``start`` may
-be 0-d tensors on the device: nothing here synchronises with the host);
-all other rows of the output are zero.
+be ints, None or 0-d integer tensors on the device, which the kernels read
+themselves: nothing here synchronises with the host); all other rows of
+the output are zero.
 """
 
 from __future__ import annotations
@@ -115,26 +117,50 @@ def _count_start(count, start, k, device):
     return torch.stack([cnt, scalar(start, 0)])
 
 
+def int_arg(v, default: int, device):
+    """An integer argument of the kernels' C entry points as ``(pointer,
+    bytes, value)``: a one-element int32 / int64 tensor on ``device`` goes
+    by pointer (the kernel reads it, so nothing synchronises with the
+    host); an int, a CPU tensor or None (meaning ``default``) by value."""
+    if v is None:
+        return None, 0, int(default)
+    if not torch.is_tensor(v):
+        return None, 0, int(v)
+    if v.numel() != 1:
+        raise ValueError(f"count/start must hold one integer, got shape "
+                         f"{tuple(v.shape)}")
+    if v.device.type == "cpu":
+        return None, 0, int(v)
+    if v.device != torch.device(device):
+        raise ValueError(f"count/start lies on {v.device}, the slab on "
+                         f"{device}")
+    if v.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"count/start must be int32 or int64, got "
+                         f"{v.dtype}")
+    return v.data_ptr(), v.element_size(), 0
+
+
 def _launch(name, fn_name, nbins, values, ys0, xs0, par, rows, lanes,
             count, start):
+    """One launch: origins are clamped and count/start read by the kernel
+    itself, so the frame path queues the output allocation and the kernel
+    only.  Every output row outside [start, start + count) is written 0."""
     if not values.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, "
                          f"got {values.device}")
     _check_args(values, ys0, xs0, par, rows, lanes)
-    values = values.contiguous()
-    par = par.contiguous()
-    k = ys0.shape[0]
-    ys0, xs0 = _clamp_origins(ys0, xs0, values, rows, lanes)
+    values, par = values.contiguous(), par.contiguous()
     ys0, xs0 = ys0.contiguous(), xs0.contiguous()
-    cnt = _count_start(count, start, k, values.device)
-    out = torch.zeros((k, nbins), dtype=torch.float32,
-                      device=values.device)
+    k = ys0.shape[0]
+    cnt = int_arg(count, k, values.device)
+    st = int_arg(start, 0, values.device)
+    out = torch.empty((k, nbins), dtype=torch.float32, device=values.device)
     lib = build.load_library()
     with torch.cuda.device(values.device):
         rc = getattr(lib, fn_name)(
-            values.data_ptr(), values.shape[1], ys0.data_ptr(),
-            xs0.data_ptr(), par.data_ptr(), par.shape[1], cnt.data_ptr(),
-            out.data_ptr(), k, rows, lanes,
+            values.data_ptr(), values.shape[0], values.shape[1],
+            ys0.data_ptr(), xs0.data_ptr(), par.data_ptr(), par.shape[1],
+            *cnt, *st, out.data_ptr(), k, rows, lanes,
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, fn_name)
     launches[name] += 1

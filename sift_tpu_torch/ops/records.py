@@ -5,8 +5,8 @@ candidate compaction and the Newton walk reading it.
 Counterpart of ``sift_tpu/ops/records.py``: equivalent capability to the
 reference's ``findPeaks3D`` + ``adjustExtrema`` + ``collectKpts`` chain
 (MatOps.cu:92-181, SiftOps.cu:63-235), restructured so the whole dense part
-is a single kernel pass per octave (kernels/fused_detect.py) and the only
-dense buffer written to device memory is the record field itself.
+is a single kernel pass over all octaves (kernels/fused_detect.py) and the
+only dense buffer written to device memory is the record field itself.
 
 Record packing.  Three f32 planes per record layer; integer payloads, exact
 in f32:
@@ -128,18 +128,25 @@ def resolve_kernel_impl(impl: str, device) -> str:
     return impl
 
 
-def detect_records(gauss_oct: torch.Tensor, cfg: SiftConfig,
-                   impl: str = "auto") -> OctaveRecords:
-    """Record field of one natural-shape octave [NL, h, w]: the CUDA
-    kernel (a CUDA tensor, impl "auto"/"cuda") or its plain version (a
-    CPU tensor, or impl "torch")."""
+def detect_records_pyramid(gauss: List[torch.Tensor], cfg: SiftConfig,
+                           impl: str = "auto") -> List[OctaveRecords]:
+    """Record fields of all natural-shape octaves [NL, h_o, w_o] at once:
+    ONE launch of the CUDA kernel (CUDA tensors, impl "auto"/"cuda") or
+    one call of its plain version (CPU tensors, or impl "torch")."""
     from sift_tpu_torch.kernels import fused_detect
-    nl, h, w = gauss_oct.shape
-    rec = fused_detect.detect_records(
-        gauss_oct, float(cfg.peak_threshold), SIFT_IMG_BORDER,
+    recs = fused_detect.detect_records(
+        gauss, float(cfg.peak_threshold), SIFT_IMG_BORDER,
         float(cfg.edge_threshold), float(cfg.contrast_threshold),
         cfg.num_octave_layers, impl=impl)
-    return OctaveRecords(values=rec, h=h, w=w)
+    return [OctaveRecords(values=r, h=g.shape[1], w=g.shape[2])
+            for g, r in zip(gauss, recs)]
+
+
+def detect_records(gauss_oct: torch.Tensor, cfg: SiftConfig,
+                   impl: str = "auto") -> OctaveRecords:
+    """Record field of one natural-shape octave [NL, h, w]: the
+    one-element case of ``detect_records_pyramid``."""
+    return detect_records_pyramid([gauss_oct], cfg, impl)[0]
 
 
 def records_torch(gauss_oct: torch.Tensor, cfg: SiftConfig) -> OctaveRecords:

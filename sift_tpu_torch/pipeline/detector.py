@@ -4,10 +4,10 @@ Counterpart of ``sift_tpu/pipeline/detector.py`` (``build_detect_fn`` and
 ``SiftDetector``).
 
 Pipeline shape: the pyramid is a short chain of large matrix products;
-detection runs per octave (ONE record-field kernel launch each, shapes
-differ per octave); candidates of all octaves take ONE Newton walk; then
-keypoints of ALL octaves are compacted into ONE fixed-capacity set and the
-orientation and descriptor kernels each run once per frame over a
+detection runs over all octaves in ONE record-field kernel launch (each
+octave at its own shape); candidates of all octaves take ONE Newton walk;
+then keypoints of ALL octaves are compacted into ONE fixed-capacity set and
+the orientation and descriptor kernels each run once per frame over a
 row-stacked raw pyramid slab whose shifted copies one expansion kernel
 writes (ops/flatpyr.py, kernels/expand.py).  That per-keypoint window
 contract holds for patch radii up to 46 (the JAX detector's rule).  A
@@ -48,7 +48,8 @@ from sift_tpu_torch.ops.flatpyr import (dense_gradients_packed,
 from sift_tpu_torch.ops.pyramid import (dog_pyramid, gaussian_pyramid,
                                         plan_operators)
 from sift_tpu_torch.ops.records import (WalkState, candidates_from_records,
-                                        detect_records, finalize_walk,
+                                        detect_records_pyramid,
+                                        finalize_walk,
                                         resolve_kernel_impl,
                                         walk_records_positions)
 
@@ -119,12 +120,11 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
     def detect(image: torch.Tensor) -> SiftResult:
         gauss = gaussian_pyramid(plan, image, ops)
 
-        # Dense detection: ONE kernel launch per octave (DoG + extrema +
-        # Newton records — the DoG volume is never materialised),
-        # per-octave candidate compaction (octave-major order), then ONE
-        # Newton walk over all octaves' candidates.
-        recs = [detect_records(gauss[o], cfg, impl)
-                for o in range(cfg.num_octaves)]
+        # Dense detection: ONE kernel launch for all octaves (DoG +
+        # extrema + Newton records — the DoG volume is never
+        # materialised), per-octave candidate compaction (octave-major
+        # order), then ONE Newton walk over all octaves' candidates.
+        recs = detect_records_pyramid(gauss, cfg, impl)
         cands = [candidates_from_records(recs[o], plan.octaves[o].cand_cap)
                  for o in range(cfg.num_octaves)]
         st, rflat = walk_records_positions(recs, cands, cfg)

@@ -291,3 +291,34 @@ def test_wrappers_dispatch_by_device_and_never_fall_back(setup):
     with pytest.raises(ValueError):         # wrong dtype
         TFS.orientation_hist_plain(slab.values, ys0.to(torch.int64), xs0,
                                    par, rows)
+
+
+@pytest.mark.parametrize("form", ["tensors", "ints", "none"])
+def test_count_start_forms(setup, form):
+    """count/start as 0-d integer tensors on the slab's device, as ints,
+    or as None (all rows): the same rows, bit for bit, through both
+    dispatching wrappers; and the C-argument form the kernels get."""
+    s = setup
+    slab = _tslab(s, 2)
+    k = _tk(s)
+    ys0, xs0, par, rows, lanes = TD.descriptor_params(
+        slab, k["octave"], k["x"], k["y"], k["layer"], k["size"],
+        k["angle"], k["valid"], s["tcfg"])
+    cn, st = 20, 7
+    if form == "tensors":
+        count, start = torch.tensor(cn, dtype=torch.int32), torch.tensor(st)
+    elif form == "ints":
+        count, start = cn, st
+    else:
+        count, start, cn, st = None, None, K, 0
+    for fn in (TFS.orientation_hist, TFS.descriptor_hist):
+        full = fn(slab.values, ys0, xs0, par, rows, lanes)
+        got = fn(slab.values, ys0, xs0, par, rows, lanes, count=count,
+                 start=start)
+        assert torch.equal(got[st:st + cn], full[st:st + cn])
+        assert (got[:st] == 0).all() and (got[st + cn:] == 0).all()
+    # On the CPU every form goes by value; None means the default.
+    assert TFS.int_arg(count, K, slab.values.device) == (None, 0, cn)
+    assert TFS.int_arg(start, 0, slab.values.device) == (None, 0, st)
+    with pytest.raises(ValueError):
+        TFS.int_arg(torch.zeros(2, dtype=torch.int32), 0, "cpu")

@@ -3,6 +3,7 @@ detect kernel), stream compaction, candidates, the Newton walk and its
 finalize.  The port runs on the CPU; inputs are numpy arrays handed to
 both packages — in particular the JAX package's own pyramid.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,29 +34,21 @@ def pyr(test_image):
 
 def _plain(g, cfg):
     return FD.detect_records_plain(
-        torch.from_numpy(g), float(cfg.peak_threshold), SIFT_IMG_BORDER,
+        [torch.from_numpy(g)], float(cfg.peak_threshold), SIFT_IMG_BORDER,
         float(cfg.edge_threshold), float(cfg.contrast_threshold),
-        cfg.num_octave_layers)
+        cfg.num_octave_layers)[0]
 
 
-# Octave 0 (240x320), octave 2 (60x80: under the 64 rows / 128 columns
-# below which the JAX package never runs its kernel), octave 4 (15x20).
-@pytest.mark.parametrize("o", [0, 2, 4])
-def test_detect_records_plain_matches_records_jnp(pyr, o):
-    jcfg, _, gauss, jrecs = pyr
-    tcfg = stt.SiftConfig(width=jcfg.width, height=jcfg.height)
-    ref = jrecs[o]
+def _hold_records(ref, got, o):
+    """A port record field ``got`` [3, L, h, w] against a JAX one, with the
+    limits of tests/test_records.py:44-66."""
     ho, wo = ref.h, ref.w
-    got = _plain(gauss[o], tcfg)
-    assert tuple(got.shape) == (3, tcfg.num_octave_layers, ho, wo)
-    assert torch.isfinite(got).all()
     a = np.asarray(ref.values[:, :, 1:ho - 1, 1:wo - 1],
                    np.float64).astype(np.int64)
     b = got[:, :, 1:ho - 1, 1:wo - 1].numpy().astype(np.float64) \
         .astype(np.int64)
-    # The limits of tests/test_records.py:44-66.  All five decision bits
-    # of A (conv, div, edge, peak, contrast_ok) agree exactly: same f32
-    # expressions in both packages.
+    # All five decision bits of A (conv, div, edge, peak, contrast_ok)
+    # agree exactly: same f32 expressions in both packages.
     np.testing.assert_array_equal(a[0] % 32, b[0] % 32,
                                   err_msg=f"octave {o} flag bits")
     # Payloads sit one round() away from raw f32 values: Cramer-ratio
@@ -78,6 +71,88 @@ def test_detect_records_plain_matches_records_jnp(pyr, o):
     full_a = np.asarray(ref.values[0, :, :ho, :wo]).astype(np.int64)
     full_b = got[0].numpy().astype(np.int64)
     np.testing.assert_array_equal((full_a >> 3) & 1, (full_b >> 3) & 1)
+
+
+# Octave 0 (240x320), octave 2 (60x80: under the 64 rows / 128 columns
+# below which the JAX package never runs its kernel), octave 4 (15x20).
+@pytest.mark.parametrize("o", [0, 2, 4])
+def test_detect_records_plain_matches_records_jnp(pyr, o):
+    jcfg, _, gauss, jrecs = pyr
+    tcfg = stt.SiftConfig(width=jcfg.width, height=jcfg.height)
+    ref = jrecs[o]
+    ho, wo = ref.h, ref.w
+    got = _plain(gauss[o], tcfg)
+    assert tuple(got.shape) == (3, tcfg.num_octave_layers, ho, wo)
+    assert torch.isfinite(got).all()
+    _hold_records(ref, got, o)
+
+
+@pytest.fixture(scope="module")
+def small_pyr():
+    """The JAX package's pyramid of a 64x48 frame: six octaves, down to
+    1x2."""
+    from conftest import synthetic_image
+    img = synthetic_image(height=48, width=64, seed=5, n_blobs=6)
+    jcfg = sift_tpu.SiftConfig(width=64, height=48)
+    gauss = [np.array(g) for g in jax_gaussian_pyramid(
+        sift_tpu.build_plan(jcfg), jnp.asarray(img))]
+    return jcfg, gauss
+
+
+def test_detect_records_pyramid_plain_equals_per_octave_and_jax(small_pyr):
+    """The pyramid-wide entry point (ONE plain call for all octaves)
+    equals the per-octave calls bit for bit on every octave, rim included,
+    and the JAX package's records_jnp / detect_records("pallas_interpret")
+    under the limits of tests/test_records.py:44-54."""
+    jcfg, gauss = small_pyr
+    tcfg = stt.SiftConfig(width=64, height=48)
+    tg = [torch.from_numpy(g) for g in gauss]
+    # Jitted: one compile per octave shape instead of one per eager op.
+    # Below 64 rows the JAX entry point falls back to records_jnp, so it is
+    # held on octave 0 only.
+    jnp_ref = jax.jit(lambda g: jrec.records_jnp(g, jcfg).values)
+    entry_ref = jax.jit(lambda g: jrec.detect_records(
+        g, jcfg, "pallas_interpret").values)
+    assert [tuple(g.shape[1:]) for g in tg][-1] == (1, 2)
+    calls = FD.plain_calls["detect_records"]
+    recs = trec.detect_records_pyramid(tg, tcfg)       # CPU -> plain
+    assert FD.plain_calls["detect_records"] == calls + 1
+    assert len(recs) == len(tg)
+    for o, (g, rec) in enumerate(zip(tg, recs)):
+        assert (rec.h, rec.w) == tuple(g.shape[1:])
+        one = trec.detect_records(g, tcfg)
+        assert torch.equal(rec.values, one.values), f"octave {o}"
+        assert torch.isfinite(rec.values).all()
+        for ref in (jnp_ref, entry_ref)[:2 if o == 0 else 1]:
+            _hold_records(jrec.OctaveRecords(ref(jnp.asarray(gauss[o])),
+                                             rec.h, rec.w), rec.values, o)
+    assert FD.plain_calls["detect_records"] == calls + 1 + len(tg)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((480, 752), (240, 376), (120, 188), (60, 94), (30, 47), (15, 23),
+     (7, 11), (3, 5), (1, 2)),         # the flagship pyramid
+    ((1, 2),), ((2, 1),), ((1, 1),),
+    ((1, 2), (2, 1), (9, 33), (8, 32)),  # not in size order
+    ((8, 32), (8, 32), (16, 1)),         # ties keep list order
+])
+def test_octave_table_layout(shapes):
+    """The kernel's block table: largest octave first (ties in list
+    order), each octave owns ceil(w/32) * ceil(h/8) consecutive blocks,
+    and the ranges tile [0, total) exactly."""
+    rows, total = FD.octave_table(shapes)
+    assert sorted(r[0] for r in rows) == list(range(len(shapes)))
+    tiles = {o: -(-w // FD.TILE_W) * -(-h // FD.TILE_H)
+             for o, (h, w) in enumerate(shapes)}
+    order = [r[0] for r in rows]
+    assert order == sorted(range(len(shapes)), key=lambda o: -tiles[o])
+    nxt = 0
+    for o, first, tx in rows:
+        assert first == nxt and tx == -(-shapes[o][1] // FD.TILE_W)
+        nxt += tiles[o]
+    assert total == nxt == sum(tiles.values())
+    with pytest.raises(ValueError):
+        FD.octave_table(tuple(shapes) + ((0, 4),))
 
 
 @pytest.mark.parametrize("h,w", [(7, 11), (3, 5), (1, 2), (12, 12)])
@@ -288,4 +363,10 @@ def test_detect_records_dispatch_by_device():
     with pytest.raises(ValueError):
         trec.detect_records(g, cfg, "cuda")        # never a silent fallback
     with pytest.raises(ValueError):
-        FD.detect_records_cuda(g, 1.0, 5, 10.0, 0.04, 3)
+        trec.detect_records_pyramid([g, g[:, :8, :8]], cfg, "cuda")
+    for octaves in ([g], [g, g[:, :4, :2].contiguous()]):
+        with pytest.raises(ValueError):            # the list form too
+            FD.detect_records_cuda(octaves, 1.0, 5, 10.0, 0.04, 3)
+    with pytest.raises(ValueError):                # mixed layer counts
+        FD.detect_records_plain([g, g[:5]], 1.0, 5, 10.0, 0.04, 3)
+    assert FD.launches == before[1]
