@@ -279,6 +279,9 @@ def stage_bytes(values, par, nrow, ncol, count, nbins):
 
 
 def check_orientation(tap, label):
+    """K2 against its plain version; two launches must give the same bits
+    (no atomics), and a [start, start + count) sub-range the full run's
+    rows with zeros outside."""
     from sift_tpu_torch.kernels import fused_stages as FS
     from sift_tpu_torch.perf.profile import device_ms
 
@@ -287,14 +290,35 @@ def check_orientation(tap, label):
     count = int(tap["count"])
     k = tap["ys0"].shape[0]
     ker = FS.orientation_hist_cuda(*a, count=tap["count"])
+    again = FS.orientation_hist_cuda(*a, count=tap["count"])
     pla = FS.orientation_hist_plain(*a, count=tap["count"])
+    st, cn = count // 3, count // 2
+    sub = FS.orientation_hist_cuda(*a, count=cn, start=st)
     torch.cuda.synchronize()
     if not torch.isfinite(ker).all():
         fail(f"orientation_hist[{label}]: non-finite output")
     rel = ((ker - pla).abs() / (pla.abs() + 1e-3)).max().item() \
         if k else 0.0
+    reproducible = bool(torch.equal(ker, again))
     tail_untouched = bool((ker[count:] == 0).all())
-    passed = rel < 1e-4 and tail_untouched
+    subrange = (bool(torch.equal(sub[st:st + cn], ker[st:st + cn]))
+                and bool((sub[:st] == 0).all())
+                and bool((sub[st + cn:] == 0).all()))
+    geom = FS.orientation_geometry(tap["rows"], tap["lanes"], k)
+    # Out of contract: a radius beyond the window truncates the patch at the
+    # window's interior, which the kernel stages in chunks of rows.
+    big = tap["par"].clone()
+    big[:64, 7] = 4.0 * tap["rows"]
+    b = (tap["values"], tap["ys0"], tap["xs0"], big, tap["rows"],
+         tap["lanes"])
+    kb = FS.orientation_hist_cuda(*b, count=tap["count"])
+    pb = FS.orientation_hist_plain(*b, count=tap["count"])
+    torch.cuda.synchronize()
+    rel_big = ((kb - pb).abs() / (pb.abs() + 1e-3)).max().item() \
+        if k else 0.0
+    passed = (rel < 1e-4 and tail_untouched and reproducible and subrange
+              and rel_big < 1e-4
+              and geom["smem_bytes"] == geom["smem_bytes_formula"])
     ms = time_ms(lambda: FS.orientation_hist_cuda(*a, count=tap["count"]))
     dev_ms = device_ms(lambda: FS.orientation_hist_cuda(
         *a, count=tap["count"]), name="orientation_hist_kernel")
@@ -310,12 +334,17 @@ def check_orientation(tap, label):
         shapes=dict(slab=list(tap["values"].shape), capacity=k, live=count,
                     rows=tap["rows"], lanes=tap["lanes"]),
         max_abs_err=float((ker - pla).abs().max()) if k else 0.0,
-        tolerance="max |k-p| / (|p| + 1e-3) < 1e-4; rows past count zero",
+        tolerance=("max |k-p| / (|p| + 1e-3) < 1e-4; rows outside "
+                   "[start, start+count) zero; two launches bit-equal"),
         passed=passed, ms=ms, plain_ms=plain_ms,
         bytes_=stage_bytes(tap["values"], tap["par"], nrow, ncol, count, 36),
         ops=ORI_OPS_PER_PIXEL * pixels,
         extra=dict(inputs=label, max_rel_err=rel, pixels=pixels,
-                   rows_past_count_zero=tail_untouched, device_ms=dev_ms))
+                   rows_past_count_zero=tail_untouched,
+                   bit_reproducible=reproducible,
+                   start_count_subrange_ok=subrange,
+                   max_rel_err_beyond_window=rel_big, geometry=geom,
+                   device_ms=dev_ms))
 
 
 def check_descriptor(tap, label, radius_classes=False):
@@ -394,85 +423,6 @@ def check_descriptor(tap, label, radius_classes=False):
         extra=extra)
 
 
-def stage_inputs(slab, kp, count, cfg):
-    """The orientation and descriptor wrappers' arguments for keypoints
-    ``kp`` (a dict of fields), built by the ops the detector itself calls."""
-    from sift_tpu_torch.ops import descriptor as D
-    from sift_tpu_torch.ops import orientation as O
-
-    ys0, xs0, par, rows, lanes = O.orientation_params(
-        slab, kp["octave"], kp["x"], kp["y"], kp["layer"], kp["size"],
-        kp["valid"], cfg)
-    ori = dict(values=slab.values, ys0=ys0, xs0=xs0, par=par, rows=rows,
-               lanes=lanes, count=count)
-    if "angle" not in kp:
-        return ori, None
-    ys0, xs0, par, rows, lanes = D.descriptor_params(
-        slab, kp["octave"], kp["x"], kp["y"], kp["layer"], kp["size"],
-        kp["angle"], kp["valid"], cfg)
-    desc = dict(values=slab.values, ys0=ys0, xs0=xs0, par=par, rows=rows,
-                lanes=lanes, count=count)
-    return ori, desc
-
-
-def frame_inputs(slab, res, cfg):
-    """The main path's own inputs of the orientation and descriptor
-    kernels for the frame that gave ``res``.  The descriptor kernel ran on
-    the result's keypoints.  The orientation kernel ran on the keypoints
-    before their expansion into one copy per orientation peak: the copies
-    of one keypoint are adjacent, so the first of each run, compacted in
-    order, is that set (checked against ``res.raw_count``)."""
-    from sift_tpu_torch.ops.compact import stream_compact
-
-    k = res.keypoints
-    full = {f: getattr(k, f) for f in ("octave", "x", "y", "layer", "size",
-                                       "angle", "valid")}
-    _, desc = stage_inputs(slab, full, res.count, cfg)
-    same = torch.ones_like(k.valid)
-    for f in ("octave", "x", "y", "layer", "size"):
-        v = getattr(k, f)
-        same[1:] &= v[1:] == v[:-1]
-    same[0] = False
-    idx, val = stream_compact(k.valid & ~same, k.valid.shape[0])
-    idx = idx.to(torch.int64)
-    raw = {f: full[f][idx] for f in ("octave", "x", "y", "layer", "size")}
-    raw["valid"] = val
-    if int(val.sum()) != int(res.raw_count):
-        fail(f"rebuilt {int(val.sum())} pre-expansion keypoints, the frame "
-             f"had {int(res.raw_count)}")
-    ori, _ = stage_inputs(slab, raw, res.raw_count, cfg)
-    return ori, desc
-
-
-def synthetic_inputs(det, slab, seed=1):
-    """~all of the capacity live, radii spanning the three ranges the
-    JAX package treats as classes (<= 26, 27-30, 31-38), random places
-    in the three largest octaves of the real slab."""
-    cfg, dev = det.config, det.device
-    k = cfg.num_features
-    rng = np.random.default_rng(seed)
-    octv = rng.integers(0, 3, k).astype(np.int32)
-    hs = np.array([op.height for op in det.plan.octaves])[octv]
-    ws = np.array([op.width for op in det.plan.octaves])[octv]
-    px = rng.uniform(2, ws - 3)
-    py = rng.uniform(2, hs - 3)
-    # descriptor radius = round(3 * scl * sqrt(2) * 2.5), scl = size/2 in
-    # octave coordinates; scl <= sigma * 2^(3.5/3) keeps it <= 38.
-    scl_max = cfg.sigma * 2.0 ** ((cfg.num_octave_layers + 0.5)
-                                  / cfg.num_octave_layers)
-    scl = rng.uniform(1.0, scl_max * 0.999, k)
-    t = lambda a, dt: torch.as_tensor(np.asarray(a), device=dev).to(dt)
-    kp = dict(
-        octave=t(octv, torch.int32),
-        x=t(px * 2.0 ** octv, torch.float32),
-        y=t(py * 2.0 ** octv, torch.float32),
-        layer=t(rng.integers(1, cfg.num_octave_layers + 1, k), torch.int32),
-        size=t(2.0 * scl * 2.0 ** octv, torch.float32),
-        angle=t(rng.uniform(0, 360, k), torch.float32),
-        valid=t(np.arange(k) < k - 16, torch.bool))   # valid-first
-    return stage_inputs(slab, kp, kp["valid"].to(torch.int32).sum(), cfg)
-
-
 def check_gather(gauss0, cfg, seed=2):
     """K4 at the shapes its paths give it: the replay's orientation stage
     ([1024, 48, 256] windows from the [6, 480, 768] gradient block), its
@@ -548,7 +498,8 @@ def check_gather(gauss0, cfg, seed=2):
 
 
 def check_window_proto():
-    """K6-K8 on the experiment's workload against the plain version."""
+    """K6-K8 on the experiment's workload against the plain version; the
+    ring at every sweep point, its default design timed."""
     from sift_tpu_torch.perf import window_proto as WP
     from sift_tpu_torch.perf.profile import device_ms
 
@@ -558,27 +509,44 @@ def check_window_proto():
     k = ys0.shape[0]
     bytes_ = (min(WP.LIVE * rows * WP.LANES * 4, slab.numel() * 4)
               + k * WP.LANES * 4 + 8 * k + 4)
+    ref = WP.window_colsum_plain(slab, ys0, xs0, rows, count,
+                                 name="window_colsum_ring")
+
+    def agrees(out, want):
+        return (bool(torch.allclose(out, want, rtol=1e-5, atol=1e-4))
+                and bool((out[WP.LIVE:] == 0).all()))
+
+    sweep = []
+    for bk, nbuf, band in WP.SWEEP:
+        out = WP.window_colsum_ring_cuda(slab, ys0, xs0, rows, count, bk,
+                                         nbuf, band)
+        torch.cuda.synchronize()
+        sweep.append(dict(**WP.ring_design(slab.device, rows, bk, nbuf,
+                                           band),
+                          matches_plain=agrees(out, ref),
+                          max_abs_err=float((out - ref).abs().max())))
     runs = (
         ("window_colsum_static", "scripts/dma_proto.py:86",
          lambda: WP.window_colsum_static_cuda(slab, ys0, xs0, rows, count),
-         lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count), 0),
+         lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count), 0, {}),
         ("window_colsum_par", "scripts/dma_proto.py:123",
          lambda: WP.window_colsum_par_cuda(slab, ys0, xs0, par, rows,
                                            count),
          lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count, par, 8,
                                         name="window_colsum_par"),
-         WP.NPAR * 4 * k),
+         WP.NPAR * 4 * k, {}),
         ("window_colsum_ring", "scripts/dma_proto.py:196",
-         lambda: WP.window_colsum_ring_cuda(slab, ys0, xs0, rows, count, 8,
-                                            4),
+         lambda: WP.window_colsum_ring_cuda(slab, ys0, xs0, rows, count),
          lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count,
-                                        name="window_colsum_ring"), 0))
+                                        name="window_colsum_ring"), 0,
+         dict(design=WP.ring_design(slab.device, rows, *WP.RING_DEFAULT),
+              sweep=sweep)))
     entries = []
-    for name, replaces, fn, plain, more_bytes in runs:
+    for name, replaces, fn, plain, more_bytes, extra in runs:
         ker, pla = fn(), plain()
         torch.cuda.synchronize()
-        ok = (bool(torch.allclose(ker, pla, rtol=1e-5, atol=1e-4))
-              and bool((ker[WP.LIVE:] == 0).all()))
+        ok = agrees(ker, pla) and all(e["matches_plain"]
+                                      for e in extra.get("sweep", ()))
         entries.append(finish_entry(
             name=name, source="sift_tpu_torch/csrc/window_proto.cu",
             replaces=replaces,
@@ -590,8 +558,33 @@ def check_window_proto():
             passed=ok, ms=time_ms(fn), plain_ms=time_ms(plain, reps=10,
                                                         warm=2),
             bytes_=bytes_ + more_bytes, ops=WP.LIVE * rows * WP.LANES,
-            extra=dict(device_ms=device_ms(fn, name="colsum_"))))
+            extra=dict(device_ms=device_ms(fn, name="colsum_"), **extra)))
     return entries
+
+
+def ptxas_kernels(log: str) -> list:
+    """Per kernel in ``ptxas -v`` output: its (mangled) name, registers,
+    spill stores and loads, shared memory."""
+    import re
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(kernel=m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def zero_counters(*modules) -> None:
@@ -726,11 +719,6 @@ def main() -> int:
     from sift_tpu_torch.kernels import fused_detect as FD
     from sift_tpu_torch.kernels import fused_stages as FS
     from sift_tpu_torch.kernels import window_gather as WG
-    from sift_tpu_torch.kernels.window_gather import window_rows
-    from sift_tpu_torch.ops.descriptor import max_descr_radius
-    from sift_tpu_torch.ops.flatpyr import stack_pyramid
-    from sift_tpu_torch.ops.orientation import max_ori_radius
-    from sift_tpu_torch.ops.pyramid import gaussian_pyramid, plan_operators
     from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES as
                                               NUM_FEATURES,
                                               FLAGSHIP_HEIGHT as HEIGHT,
@@ -738,8 +726,9 @@ def main() -> int:
                                               bench_image)
     from sift_tpu_torch.perf import window_proto as WP
     from sift_tpu_torch.perf.compare import pair_keypoints
-    from sift_tpu_torch.pipeline.detector import (full_precision_matmul,
-                                                  slab_copies)
+    from sift_tpu_torch.perf.stage_inputs import (frame_inputs, frame_slab,
+                                                  synthetic_inputs)
+    from sift_tpu_torch.pipeline.detector import full_precision_matmul
 
     full_precision_matmul()
     kind = torch.cuda.get_device_name(0)
@@ -754,8 +743,14 @@ def main() -> int:
     build.load_library()
     ptxas = [ln for ln in build.build_log.splitlines()
              if "registers" in ln or "error" in ln.lower()]
+    per_kernel = ptxas_kernels(build.build_log)
     say({"phase": "build", "seconds": build.build_seconds,
-         "library_dir": str(build.build_dir()), "ptxas": ptxas})
+         "library_dir": str(build.build_dir()), "ptxas": ptxas,
+         "kernels": per_kernel})
+    spills = [e["kernel"] for e in per_kernel
+              if e.get("spill_stores") or e.get("spill_loads")]
+    if spills:
+        fail(f"kernels spill registers: {spills}")
 
     # -- set-up: detector, frames, the main path's own kernel inputs --------
     cfg = SiftConfig(width=WIDTH, height=HEIGHT, num_features=NUM_FEATURES)
@@ -770,18 +765,11 @@ def main() -> int:
 
     # -- kernels: each at the inputs the main path gave it on frame 1,
     # rebuilt here by the ops the detector itself calls -------------------
-    gauss = gaussian_pyramid(det.plan, f1, plan_operators(det.plan,
-                                                          det.device))
-    rmax = max(max_descr_radius(cfg), max_ori_radius(cfg))
-    ncop = slab_copies(det.plan)
-    layers = dict(extra_rows=window_rows(rmax), layer_lo=1,
-                  layer_hi=cfg.num_octave_layers + 1)
-    base = stack_pyramid(gauss, copies=1, **layers).values
-    slab = stack_pyramid(gauss, copies=ncop, **layers)
+    gauss, base, slab = frame_slab(det, f1)
     frm_ori, frm_desc = frame_inputs(slab, r0, cfg)
     syn_ori, syn_desc = synthetic_inputs(det, slab)
     k1 = check_detect(gauss, cfg)
-    k5 = check_expand(base, ncop)
+    k5 = check_expand(base, slab.copies)
     k2 = check_orientation(frm_ori, "frame")
     k2s = check_orientation(syn_ori, "synthetic_full")
     k3 = check_descriptor(frm_desc, "frame")

@@ -58,17 +58,17 @@ def find_nvcc() -> str:
         "kernels of sift_tpu_torch cannot be built on this machine")
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path) -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def _build(target: Path) -> None:
-    global build_log
+def _build(target: Path, csrc: Path) -> str:
+    """Compile ``csrc``'s sources into ``target``; returns the log."""
     nvcc = find_nvcc()
     out = target.parent
     out.mkdir(parents=True, exist_ok=True)
@@ -76,7 +76,7 @@ def _build(target: Path) -> None:
     procs = []
     for name in SOURCES:
         obj = out / f"{tag}.{Path(name).stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name),
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(csrc / name),
                "-o", str(obj)]
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -87,70 +87,82 @@ def _build(target: Path) -> None:
         logs.append(f"== nvcc {name}\n{text}")
         if proc.returncode != 0:
             failed.append(name)
-    build_log = "\n".join(logs)
+    log = "\n".join(logs)
     objs = [str(obj) for _, obj, _ in procs]
     try:
         if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
         tmp = out / f"{tag}.so"
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp), *objs],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        build_log += f"\n== link\n{link.stdout}"
+        log += f"\n== link\n{link.stdout}"
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp, target)       # atomic: readers never see a partial
-        (out / f"{target.stem}.log").write_text(build_log)
+        (out / f"{target.stem}.log").write_text(log)
     finally:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
+    return log
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    """Argument and result types of every entry point the library
+    exports (a library built from another tree may lack the newer ones)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
-    lib.sift_detect_records.argtypes = [ctypes.POINTER(ll), i, i, i, f, i,
-                                        f, f, f, f, p]
-    lib.sift_detect_records.restype = i
-    lib.sift_expand_lane_copies.argtypes = [p, p, i, i, i, i, p]
-    lib.sift_expand_lane_copies.restype = i
+    pll, pi = ctypes.POINTER(ll), ctypes.POINTER(i)
     # slab, hs, ws, ys0, xs0, par, npar, count (ptr, bytes, value),
     # start (ptr, bytes, value), out, K, rows, lanes, stream
     hist = [p, i, i, p, p, p, i, p, i, ll, p, i, ll, p, i, i, i, p]
-    lib.sift_orientation_hist.argtypes = hist
-    lib.sift_orientation_hist.restype = i
-    lib.sift_descriptor_hist.argtypes = hist
-    lib.sift_descriptor_hist.restype = i
-    lib.sift_gather_windows.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.sift_gather_windows.restype = i
-    lib.sift_window_colsum_static.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                              p]
-    lib.sift_window_colsum_static.restype = i
-    lib.sift_window_colsum_par.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                           p]
-    lib.sift_window_colsum_par.restype = i
-    lib.sift_window_colsum_ring.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            i, p]
-    lib.sift_window_colsum_ring.restype = i
+    table = {
+        "sift_detect_records": [ctypes.POINTER(ll), i, i, i, f, i, f, f, f,
+                                f, p],
+        "sift_expand_lane_copies": [p, p, i, i, i, i, p],
+        "sift_orientation_hist": hist,
+        "sift_orientation_hist_geometry": [i, i, i, pll, pi],
+        "sift_descriptor_hist": hist,
+        "sift_gather_windows": [p, p, p, p, p, i, i, i, i, i, i, p],
+        "sift_window_colsum_static": [p, p, p, p, p, i, i, i, i, i, p],
+        "sift_window_colsum_par": [p, p, p, p, p, p, i, i, i, i, i, p],
+        # slab, ys0, xs0, count, out, k_cap, h, w, rows, block_k, nbuf,
+        # band_rows, grid, stream
+        "sift_window_colsum_ring": [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                    p],
+        "sift_window_colsum_ring_geometry": [i, i, i, pll, pi],
+    }
+    for name, argtypes in table.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i
+
+
+def build_library(csrc: Path, out_dir: Path):
+    """Build (or find built) the sources of ``csrc`` into ``out_dir`` and
+    load them: returns (library, seconds spent building, compiler log)."""
+    target = Path(out_dir) / f"libsift_kernels_{_source_hash(Path(csrc))}.so"
+    t0 = time.perf_counter()
+    if target.exists():
+        seconds = 0.0
+        log = target.with_suffix(".log")
+        log = log.read_text() if log.exists() else ""
+    else:
+        log = _build(target, Path(csrc))
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(target))
+    _declare(lib)
+    return lib, seconds, log
 
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built at first use."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    target = build_dir() / f"libsift_kernels_{_source_hash()}.so"
-    t0 = time.perf_counter()
-    if target.exists():
-        build_seconds = 0.0
-    else:
-        _build(target)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(target))
-    _declare(lib)
-    _lib = lib
-    return lib
+    global _lib, build_seconds, build_log
+    if _lib is None:
+        _lib, build_seconds, build_log = build_library(CSRC, build_dir())
+    return _lib
 
 
 def check(rc: int, what: str) -> None:

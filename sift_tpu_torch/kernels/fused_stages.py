@@ -46,6 +46,12 @@ _NBO = SIFT_ORI_HIST_BINS
 _RAD2DEG = 180.0 / math.pi
 NPAR = 13
 
+# The orientation kernel's block (csrc/orientation_hist.cu): threads, and
+# floats of its patch buffer (a 35 x 35 patch: radius 16 plus the gradient
+# halo; larger patches are staged in chunks of rows).
+ORI_THREADS = 64
+ORI_PATCH_CAP = 1296
+
 # Launch counts: ``launches[name]`` rises by one where a wrapper launches
 # its CUDA kernel and nowhere else; ``plain_calls`` counts plain versions.
 launches = {"orientation_hist": 0, "descriptor_hist": 0}
@@ -94,6 +100,36 @@ def _check_args(values, ys0, xs0, par, rows, lanes):
     if rows < 3 or lanes < 3 or hs < rows or ws < lanes:
         raise ValueError(f"slab {hs}x{ws} cannot hold a {rows}x{lanes} "
                          "window")
+
+
+def orientation_smem_bytes(rows: int, lanes: int) -> int:
+    """Dynamic shared memory of one orientation block, as
+    csrc/orientation_hist.cu lays it out (f32): lane-private bins [36,
+    threads], the patch buffer, a row table [rows], a column table
+    [lanes], the warps' partial sums [warps, 36].  Raises for a window the
+    kernel cannot take: a patch chunk of at least one row plus its halo
+    must fit one buffer, so ``lanes <= ORI_PATCH_CAP // 3``."""
+    if rows < 3 or not 3 <= lanes <= ORI_PATCH_CAP // 3:
+        raise ValueError(f"the orientation kernel takes 3 <= lanes <= "
+                         f"{ORI_PATCH_CAP // 3} and rows >= 3, got "
+                         f"{rows}x{lanes}")
+    return 4 * (_NBO * ORI_THREADS + ORI_PATCH_CAP + rows + lanes
+                + (ORI_THREADS // 32) * _NBO)
+
+
+def orientation_geometry(rows: int, lanes: int, k: int) -> dict:
+    """The orientation kernel's launch on the current CUDA device: shared
+    memory per block and the persistent grid, as the C entry point
+    computes them, beside this module's formula."""
+    import ctypes
+    lib = build.load_library()
+    smem, grid = ctypes.c_longlong(0), ctypes.c_int(0)
+    build.check(lib.sift_orientation_hist_geometry(
+        rows, lanes, k, ctypes.byref(smem), ctypes.byref(grid)),
+        "sift_orientation_hist_geometry")
+    return dict(threads=ORI_THREADS, smem_bytes=smem.value, grid=grid.value,
+                smem_bytes_formula=orientation_smem_bytes(rows, lanes),
+                patch_cap_floats=ORI_PATCH_CAP)
 
 
 def _clamp_origins(ys0, xs0, values, rows, lanes):
@@ -306,6 +342,7 @@ def descriptor_hist_plain(values, ys0, xs0, par, rows: int,
 def orientation_hist_cuda(values, ys0, xs0, par, rows: int,
                           lanes: int = LANES, count=None, start=None):
     """Launch the CUDA orientation kernel; raises rather than fall back."""
+    orientation_smem_bytes(rows, lanes)
     return _launch("orientation_hist", "sift_orientation_hist", _NBO,
                    values, ys0, xs0, par, rows, lanes, count, start)
 

@@ -18,14 +18,16 @@ compute it by three loading schemes:
   parameter tile staged in shared memory first; ``par[first row of the
   block, 0]`` is added to the block's first output row;
 * ``window_colsum_ring`` — a persistent grid that walks the LIVE windows
-  only and streams them through an ``nbuf``-slot shared-memory ring with
-  ``cp.async``, one wait per slot.
+  only; one thread per block copies each window in ``band_rows``-row tiles
+  with the Tensor Memory Accelerator into an ``nbuf``-slot shared-memory
+  ring guarded by mbarriers, and ``block_k`` warps sum the slots.
 
 ``window_colsum_plain`` is the same function in plain PyTorch (with the
 ``par`` variant); the ``*_cuda`` wrappers launch or raise.  ``main`` runs
 the JAX script's workload (slab 1536x1024, rows 72, capacity 5000, 1080
-live, the same ``block_k``/``nbuf`` sweep), checks the schemes against each
-other and against the plain version, and prints each time: ``ms`` from CUDA
+live; the ring swept over consumer warps, ring depth and band rows, each
+point with its layout), checks the schemes against each other and against
+the plain version, and prints each time: ``ms`` from CUDA
 events around back-to-back calls of the wrapper, ``device_ms`` the kernel's
 own duration from ``torch.profiler``.
 Needs a CUDA device.
@@ -34,6 +36,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -46,9 +49,16 @@ from sift_tpu_torch.kernels import build
 
 LANES = 128
 NPAR = 16
-RING_ROWS = 2                      # rows per ring slot (csrc/window_proto.cu)
-RING_NBUF = (2, 4, 8)              # ring depths the kernel is built for
-SWEEP = ((8, 2), (8, 4), (8, 8), (16, 4), (32, 2), (32, 4))  # (block_k, nbuf)
+ROW_BYTES = LANES * 4              # one window row, f32
+# Ring sweep points (block_k consumer warps, nbuf slots, band_rows per slot):
+# bands of 8, 24, 36 and 72 rows (a whole window is one 36,864-byte tile).
+SWEEP = ((8, 4, 8), (8, 8, 8), (8, 4, 24), (16, 4, 24), (8, 4, 36),
+         (4, 6, 36), (4, 2, 72), (8, 2, 72), (16, 2, 72))
+# The ring's defaults (block_k, nbuf, band_rows): two whole-window slots;
+# band_rows None means one tile per window (rows <= 256).
+RING_DEFAULT = (8, 2, None)
+# The most dynamic shared memory one block may have on the H100 (bytes).
+BLOCK_SMEM_MAX = 227 * 1024
 
 _NAMES = ("window_colsum_static", "window_colsum_par", "window_colsum_ring")
 # Launch counts: ``launches[name]`` rises by one where a wrapper launches
@@ -62,9 +72,9 @@ def _check_args(slab, ys0, xs0, rows: int, block_k: int, par=None) -> None:
         raise ValueError("slab must be [H, W] float32, got "
                          f"{tuple(slab.shape)} {slab.dtype}")
     h, w = slab.shape
-    if w % 4 or w < LANES or rows <= 0 or rows % RING_ROWS or h < rows:
+    if w % 4 or w < LANES or rows <= 0 or h < rows:
         raise ValueError(f"slab {h}x{w} cannot hold a {rows}x{LANES} window "
-                         f"(width % 4 == 0, rows % {RING_ROWS} == 0)")
+                         "(width % 4 == 0)")
     k = ys0.shape[0]
     for name, t in (("ys0", ys0), ("xs0", xs0)):
         if t.shape != (k,) or t.dtype != torch.int32 \
@@ -116,8 +126,98 @@ def window_colsum_plain(slab: torch.Tensor, ys0, xs0, rows: int, count,
     return torch.where(live[:, None], out, torch.zeros_like(out))
 
 
+def ring_smem_bytes(block_k: int, nbuf: int, band_rows: int) -> int:
+    """Dynamic shared memory of one ring block, as csrc/window_proto.cu lays
+    it out: ``nbuf`` slots of ``band_rows`` window rows, the warps' window
+    sums double-buffered ([2, block_k] rows), two mbarriers per slot and
+    128 bytes to align the base."""
+    return (nbuf * band_rows * ROW_BYTES + 2 * block_k * ROW_BYTES
+            + 2 * nbuf * 8 + 128)
+
+
+def ring_band(rows: int, band_rows: Optional[int]) -> int:
+    """Rows of one ring slot: ``band_rows``, or the whole window."""
+    return rows if band_rows is None else band_rows
+
+
+def check_ring(rows: int, block_k: int, nbuf: int,
+               band_rows: Optional[int]) -> None:
+    """Raise on ring arguments the kernel cannot take: a slot is one TMA
+    tile of ``band_rows`` x 128 (a box side is at most 256), the bands tile
+    the window exactly, and the block's shared memory fits the SM."""
+    band_rows = ring_band(rows, band_rows)
+    if not 1 <= band_rows <= 256 or rows % band_rows:
+        raise ValueError(f"band_rows must divide rows={rows} and lie in "
+                         f"1..256, got {band_rows}")
+    if nbuf < 1:
+        raise ValueError(f"nbuf must be >= 1, got {nbuf}")
+    if not 1 <= block_k <= 32:
+        raise ValueError(f"block_k must be in 1..32, got {block_k}")
+    smem = ring_smem_bytes(block_k, nbuf, band_rows)
+    if smem > BLOCK_SMEM_MAX:
+        raise ValueError(f"a ring of {nbuf} x {band_rows} rows needs {smem} "
+                         f"bytes of shared memory (at most {BLOCK_SMEM_MAX})")
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_occupancy(device_index: int, block_k: int, nbuf: int,
+                    band_rows: int) -> int:
+    import ctypes
+    lib = build.load_library()
+    smem, per_sm = ctypes.c_longlong(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(lib.sift_window_colsum_ring_geometry(
+            block_k, nbuf, band_rows, ctypes.byref(smem),
+            ctypes.byref(per_sm)), "sift_window_colsum_ring_geometry")
+    if smem.value != ring_smem_bytes(block_k, nbuf, band_rows):
+        raise RuntimeError("ring_smem_bytes disagrees with the kernel's "
+                           f"layout: {smem.value} bytes")
+    if per_sm.value < 1:
+        raise RuntimeError(f"a ring block of {block_k} warps and "
+                           f"{smem.value} bytes does not fit an SM")
+    return per_sm.value
+
+
+def ring_grid(device, block_k: int, nbuf: int, band_rows: int) -> int:
+    """Blocks of the ring kernel's persistent grid: one wave on the card
+    (SMs x the blocks one SM holds, from the CUDA occupancy calculator),
+    fixed by the card, never by the data."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * _ring_occupancy(index, block_k, nbuf, band_rows)
+
+
+def ring_tensor_map(h: int, w: int, band_rows: int) -> dict:
+    """The arguments csrc/window_proto.cu gives cuTensorMapEncodeTiled for
+    an [h, w] float32 slab (innermost dimension first): the whole slab,
+    rows ``w * 4`` bytes apart, a box of one band.  Raises where TMA
+    cannot take them (row stride a multiple of 16 bytes, box sides <= 256,
+    dimensions below 2**32)."""
+    if w % 4 or w < LANES or not 0 < h < 2 ** 32 or w >= 2 ** 32:
+        raise ValueError(f"a {h}x{w} slab has no TMA map (width % 4 == 0, "
+                         f">= {LANES})")
+    if not 1 <= band_rows <= min(256, h):
+        raise ValueError(f"box of {band_rows} rows (1..256, <= {h})")
+    return dict(global_dim=(w, h), global_stride_bytes=(w * 4,),
+                box_dim=(LANES, band_rows), element_strides=(1, 1),
+                box_bytes=band_rows * ROW_BYTES)
+
+
+def ring_design(device, rows: int, block_k: int, nbuf: int,
+                band_rows: Optional[int]) -> dict:
+    """What one ring launch looks like: stages, band, slot and block bytes
+    and grid."""
+    band_rows = ring_band(rows, band_rows)
+    return dict(design="tma_2d_mbarrier_ring", block_k=block_k, nbuf=nbuf,
+                band_rows=band_rows, bands_per_window=rows // band_rows,
+                slot_bytes=band_rows * ROW_BYTES,
+                smem_bytes=ring_smem_bytes(block_k, nbuf, band_rows),
+                grid=ring_grid(device, block_k, nbuf, band_rows))
+
+
 def _launch(name: str, slab, ys0, xs0, rows, count, block_k, par=None,
-            nbuf: int = 0):
+            nbuf: int = 0, band_rows: Optional[int] = None):
     if not slab.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
                          f"{slab.device}")
@@ -141,25 +241,15 @@ def _launch(name: str, slab, ys0, xs0, rows, count, block_k, par=None,
             rc = lib.sift_window_colsum_par(*head, par.data_ptr(), *tail,
                                             stream)
         else:
-            if nbuf not in RING_NBUF:
-                raise ValueError(f"nbuf must be one of {RING_NBUF}, got "
-                                 f"{nbuf}")
-            grid = ring_grid(slab.device, block_k, nbuf)
-            rc = lib.sift_window_colsum_ring(*head, *tail, nbuf, grid,
-                                             stream)
+            check_ring(rows, block_k, nbuf, band_rows)
+            band_rows = ring_band(rows, band_rows)
+            ring_tensor_map(h, w, band_rows)
+            grid = ring_grid(slab.device, block_k, nbuf, band_rows)
+            rc = lib.sift_window_colsum_ring(*head, *tail, nbuf, band_rows,
+                                             grid, stream)
     build.check(rc, f"sift_{name}")
     launches[name] += 1
     return out
-
-
-def ring_grid(device, block_k: int, nbuf: int) -> int:
-    """Blocks of the ring kernel's persistent grid: per SM as many blocks
-    as give it 32 warps (``32 // block_k``), fewer where their rings would
-    not fit 200 KB of shared memory; fixed by the card, never by the data."""
-    smem = block_k * nbuf * RING_ROWS * 32 * 16
-    blocks_per_sm = max(1, min(32 // block_k, (200 * 1024) // smem))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * blocks_per_sm
 
 
 def window_colsum_static_cuda(slab, ys0, xs0, rows: int, count,
@@ -179,11 +269,15 @@ def window_colsum_par_cuda(slab, ys0, xs0, par, rows: int, count,
 
 
 def window_colsum_ring_cuda(slab, ys0, xs0, rows: int, count,
-                            block_k: int = 8, nbuf: int = 4) -> torch.Tensor:
-    """Launch the persistent ring kernel (``block_k`` warps per block, each
-    with an ``nbuf``-slot ring)."""
+                            block_k: int = RING_DEFAULT[0],
+                            nbuf: int = RING_DEFAULT[1],
+                            band_rows: Optional[int] = RING_DEFAULT[2]
+                            ) -> torch.Tensor:
+    """Launch the persistent TMA ring kernel (``block_k`` consumer warps
+    per block, an ``nbuf``-slot ring of ``band_rows``-row tiles, whole
+    windows by default)."""
     return _launch("window_colsum_ring", slab, ys0, xs0, rows, count,
-                   block_k, nbuf=nbuf)
+                   block_k, nbuf=nbuf, band_rows=band_rows)
 
 
 def _dispatch(impl: str, device) -> bool:
@@ -210,11 +304,15 @@ def window_colsum_par(slab, ys0, xs0, par, rows: int, count,
                                name="window_colsum_par")
 
 
-def window_colsum_ring(slab, ys0, xs0, rows: int, count, block_k: int = 8,
-                       nbuf: int = 4, impl: str = "auto") -> torch.Tensor:
+def window_colsum_ring(slab, ys0, xs0, rows: int, count,
+                       block_k: int = RING_DEFAULT[0],
+                       nbuf: int = RING_DEFAULT[1],
+                       band_rows: Optional[int] = RING_DEFAULT[2],
+                       impl: str = "auto") -> torch.Tensor:
+    check_ring(rows, block_k, nbuf, band_rows)
     if _dispatch(impl, slab.device):
         return window_colsum_ring_cuda(slab, ys0, xs0, rows, count, block_k,
-                                       nbuf)
+                                       nbuf, band_rows)
     return window_colsum_plain(slab, ys0, xs0, rows, count,
                                name="window_colsum_ring")
 
@@ -289,10 +387,11 @@ def run_experiment(device="cuda") -> dict:
         slab, ys0, xs0, rows, count, 8), ref, block_k=8)
     entry("par", lambda: window_colsum_par_cuda(
         slab, ys0, xs0, par, rows, count, 8), ref_par, block_k=8)
-    for bk, nbuf in SWEEP:
-        b = entry("ring", lambda bk=bk, nbuf=nbuf: window_colsum_ring_cuda(
-            slab, ys0, xs0, rows, count, bk, nbuf), ref, block_k=bk,
-            nbuf=nbuf, grid=ring_grid(slab.device, bk, nbuf))
+    for bk, nbuf, band in SWEEP:
+        b = entry("ring", lambda bk=bk, nbuf=nbuf, band=band:
+                  window_colsum_ring_cuda(slab, ys0, xs0, rows, count, bk,
+                                          nbuf, band), ref,
+                  **ring_design(slab.device, rows, bk, nbuf, band))
         entries[-1]["matches_static"] = close(a, b)
     plain_ms = time_ms(lambda: window_colsum_plain(slab, ys0, xs0, rows,
                                                    count), reps=10, warm=2)

@@ -322,3 +322,132 @@ def test_count_start_forms(setup, form):
     assert TFS.int_arg(start, 0, slab.values.device) == (None, 0, st)
     with pytest.raises(ValueError):
         TFS.int_arg(torch.zeros(2, dtype=torch.int32), 0, "cpu")
+
+
+def test_orientation_plain_vs_pallas_at_radius_bound(setup):
+    """Keypoints at the static orientation radius bound (16 at the default
+    sigma) and just under it, pinned to the image borders of all three
+    octaves so that the borders clip their patches: the plain version of
+    the redesigned kernel against orientation_hist_fused(interpret=True),
+    rel < 1e-4 on every row (all are in contract: descriptor radius 37)."""
+    s = setup
+    tcfg = s["tcfg"]
+    rmax_o = TO.max_ori_radius(tcfg)
+    assert rmax_o == 16
+    n = 24
+    octv = np.arange(n, dtype=np.int32) % 3
+    w_o = np.array([320, 160, 80])[octv]
+    h_o = np.array([240, 120, 60])[octv]
+    # Patch centres on each border and corner, and one inside.
+    fx = np.array([0.0, 1.0, 0.0, 1.0, 0.5, 0.0, 1.0, 0.5])[np.arange(n) % 8]
+    fy = np.array([0.0, 0.0, 1.0, 1.0, 0.0, 0.5, 0.5, 0.5])[
+        (np.arange(n) // 3) % 8]
+    px = 2.0 + fx * (w_o - 5)
+    py = 2.0 + fy * (h_o - 5)
+    # Orientation radius round(4.5 * scl): 16, 16, 15, 14.
+    scl = np.array([3.5, 3.6, 3.3, 3.1])[np.arange(n) % 4]
+    k = dict(octave=torch.from_numpy(octv),
+             x=torch.from_numpy((px * 2.0 ** octv).astype(np.float32)),
+             y=torch.from_numpy((py * 2.0 ** octv).astype(np.float32)),
+             layer=torch.from_numpy((np.arange(n) % (s["L"] - 3) + 1)
+                                    .astype(np.int32)),
+             size=torch.from_numpy((2.0 * scl * 2.0 ** octv)
+                                   .astype(np.float32)),
+             valid=torch.ones(n, dtype=torch.bool))
+    slab = _tslab(s, 4)
+    ys0, xs0, par, rows, lanes = TO.orientation_params(
+        slab, k["octave"], k["x"], k["y"], k["layer"], k["size"],
+        k["valid"], tcfg)
+    p = par.numpy()
+    assert p[:, 7].max() == rmax_o and (p[:, 7] >= 14).all()
+    # The image border cuts the patch of most of them (ylo = 1 - py above
+    # -radius, or xhi = w - 2 - px below +radius).
+    cut = ((p[:, 2] > -p[:, 7]) | (p[:, 3] < p[:, 7])
+           | (p[:, 4] > -p[:, 7]) | (p[:, 5] < p[:, 7]))
+    assert cut.sum() >= n // 2 and (~cut).any()
+    plain = TFS.orientation_hist_plain(slab.values, ys0, xs0, par, rows)
+    fused = JFS.orientation_hist_fused(
+        jnp.asarray(slab.values.numpy()), jnp.asarray(ys0.numpy()),
+        jnp.asarray(xs0.numpy()), jnp.asarray(par.numpy()), rows,
+        pack=JFS.pack_factor(rmax_o), interpret=True)
+    a, b = np.asarray(fused), plain.numpy()
+    assert np.isfinite(b).all() and (b.sum(1) > 0).all()
+    assert _rel(a, b).max() < 1e-4
+
+
+def test_orientation_kernel_layout():
+    """The shared-memory layout the wrapper checks against the CUDA
+    kernel's: exact bytes at the main path's 48 x 128 window and the
+    descriptor-sized 88 x 256 one, the source's constants, a buffer that
+    holds the default radius bound's whole patch, and windows the kernel
+    cannot take raise."""
+    assert TFS.orientation_smem_bytes(48, 128) == 15392
+    assert TFS.orientation_smem_bytes(88, 256) == 16064
+    # 4 * (36 * 64 bins + 1296 patch + 48 rows + 128 columns + 2 * 36)
+    assert 15392 == 4 * (36 * 64 + 1296 + 48 + 128 + 72)
+    src = (TFS.build.CSRC / "orientation_hist.cu").read_text()
+    assert f"#define ORI_NT {TFS.ORI_THREADS}\n" in src
+    assert f"#define ORI_PATCH_CAP {TFS.ORI_PATCH_CAP}\n" in src
+    r = TO.max_ori_radius(stt.SiftConfig(width=752, height=480))
+    assert (2 * r + 3) ** 2 <= TFS.ORI_PATCH_CAP < (2 * r + 5) ** 2
+    assert window_rows(r) == 48
+    for rows, lanes in ((48, 433), (48, 2), (2, 128)):
+        with pytest.raises(ValueError):
+            TFS.orientation_smem_bytes(rows, lanes)
+    values = torch.zeros((64, 512))
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):     # checked before the device is
+        TFS.orientation_hist_cuda(values, idx, idx, torch.zeros(4, 13), 48,
+                                  lanes=512)
+
+
+def test_orientation_ablation_variants_apply(tmp_path):
+    """Every ablation of the orientation kernel patches a copy of the
+    sources (each substitution must match the kernel as it stands) and
+    leaves the package's own csrc/ untouched; the tool needs the card."""
+    from sift_tpu_torch.perf import orientation_ablation as OA
+    src = TFS.build.CSRC / "orientation_hist.cu"
+    before = src.read_text()
+    assert OA.VARIANTS["kept"] == []
+    for name in OA.VARIANTS:
+        out = OA.variant_source(name, tmp_path / name)
+        got = (out / "orientation_hist.cu").read_text()
+        assert (got == before) == (name == "kept")
+        for other in TFS.build.SOURCES + TFS.build.HEADERS:
+            assert (out / other).exists()
+    assert src.read_text() == before
+    assert "sift_ori_prof" in (tmp_path / "phase_counters" / "csrc"
+                               / "orientation_hist.cu").read_text()
+    if not torch.cuda.is_available():
+        assert OA.main([]) == 1
+
+
+def test_stage_inputs_rebuild_a_frames_kernel_inputs():
+    """perf/stage_inputs (what chip_smoke.py and the ablation tool time the
+    per-keypoint kernels on), on the CPU at a small frame: the orientation
+    inputs are the frame's keypoints before their orientation expansion,
+    the descriptor inputs the result's, and the synthetic set fills the
+    capacity but 16 slots with radii inside both windows."""
+    from sift_tpu_torch.perf.benchimg import bench_image
+    from sift_tpu_torch.perf.stage_inputs import (frame_inputs, frame_slab,
+                                                  synthetic_inputs)
+    cfg = stt.SiftConfig(width=160, height=120, num_features=300)
+    det = stt.SiftDetector(cfg, device="cpu")
+    frame = torch.as_tensor(bench_image(120, 160, seed=0))
+    res = det.detect_and_compute(frame)
+    gauss, base, slab = frame_slab(det, frame)
+    assert len(gauss) == len(det.plan.octaves) and slab.copies in (2, 4)
+    assert base.shape[1] == slab.values.shape[1]
+    ori, desc = frame_inputs(slab, res, cfg)
+    assert int(ori["count"]) == int(res.raw_count) > 0
+    assert int(desc["count"]) == int(res.count) >= int(res.raw_count)
+    assert ori["rows"] == window_rows(TO.max_ori_radius(cfg))
+    hist = TFS.orientation_hist(ori["values"], ori["ys0"], ori["xs0"],
+                                ori["par"], ori["rows"], ori["lanes"],
+                                count=ori["count"])
+    n = int(ori["count"])
+    assert (hist[:n].sum(1) > 0).all() and not hist[n:].any()
+    syn_ori, syn_desc = synthetic_inputs(det, slab)
+    assert int(syn_ori["count"]) == cfg.num_features - 16
+    assert syn_ori["par"][:, 7].max() <= TO.max_ori_radius(cfg)
+    assert syn_desc["par"][:, 7].max() <= TD.max_descr_radius(cfg)

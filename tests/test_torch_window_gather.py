@@ -203,6 +203,65 @@ def test_window_proto_contract_and_workload():
     assert wl["ys0"].shape == (5000,) and int(wl["count"]) == 1080
     assert (wl["ys0"] % 8 == 0).all() and (wl["xs0"] % 128 == 0).all()
     assert int((wl["ys0"] + 72).max()) <= 1536
-    assert WP.SWEEP == ((8, 2), (8, 4), (8, 8), (16, 4), (32, 2), (32, 4))
+    assert WP.SWEEP == ((8, 4, 8), (8, 8, 8), (8, 4, 24), (16, 4, 24),
+                        (8, 4, 36), (4, 6, 36), (4, 2, 72), (8, 2, 72),
+                        (16, 2, 72))
+    assert WP.RING_DEFAULT == (8, 2, None) and (8, 2, 72) in WP.SWEEP
+    assert WP.ring_band(72, None) == 72 and WP.ring_band(72, 24) == 24
+    for bk, nbuf, band in WP.SWEEP:         # every point fits the kernel
+        WP.check_ring(wl["rows"], bk, nbuf, band)
     if not torch.cuda.is_available():
         assert WP.main([]) == 1             # the experiment needs the card
+
+
+@pytest.mark.parametrize("band_rows", [8, 24, 36, 72])
+def test_window_colsum_plain_at_ring_band_sizes(band_rows):
+    """The ring's dispatcher on CPU tensors at the experiment's 72-row
+    windows and each band size the TMA ring takes: the plain version
+    against a float64 numpy column sum (atol 1e-4: float32 sums of 72
+    normal values in another order); rows past ``count`` zero."""
+    slab, ys0, xs0, par, rows, live = _proto_inputs(seed=band_rows, h=160,
+                                                    rows=72)
+    t = torch.from_numpy
+    got = WP.window_colsum_ring(t(slab), t(ys0), t(xs0), rows,
+                                torch.tensor([live], dtype=torch.int32),
+                                block_k=8, nbuf=2, band_rows=band_rows)
+    want = _numpy_colsum(slab, ys0, xs0, rows, live)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    assert not got[live:].any()
+
+
+def test_ring_layout_and_tensor_map():
+    """Host-side arithmetic of the TMA ring, exactly: the block's shared
+    memory, the tensor-map arguments, and the arguments it refuses."""
+    # nbuf slots of band x 512 B + [2, block_k] x 512 B of warp sums +
+    # 16 B of mbarriers per slot + 128 B of alignment slack.
+    assert WP.ring_smem_bytes(8, 2, 72) == 2 * 36864 + 8192 + 32 + 128
+    assert WP.ring_smem_bytes(8, 4, 24) == 57536
+    assert WP.ring_smem_bytes(4, 6, 36) == 114912
+    assert WP.ring_smem_bytes(16, 4, 24) == 65728
+    assert WP.ROW_BYTES == 512
+    src = (WP.build.CSRC / "window_proto.cu").read_text()
+    assert "#define RING_ROW_BYTES (WP_LANES * 4)" in src
+    assert WP.ring_tensor_map(1536, 1024, 72) == dict(
+        global_dim=(1024, 1536), global_stride_bytes=(4096,),
+        box_dim=(128, 72), element_strides=(1, 1), box_bytes=36864)
+    assert WP.ring_tensor_map(96, 384, 8)["global_stride_bytes"] == (1536,)
+    for bad in ((1536, 1022, 8), (1536, 64, 8), (1536, 1024, 257),
+                (1536, 1024, 0), (16, 1024, 24)):
+        with pytest.raises(ValueError):
+            WP.ring_tensor_map(*bad)
+    WP.check_ring(72, 32, 1, 72)
+    for bad in (dict(band_rows=16),          # 72 % 16 != 0
+                dict(band_rows=0), dict(nbuf=0), dict(block_k=33),
+                dict(nbuf=7, band_rows=72)):  # 7 x 36,864 B > 227 KB
+        args = {**dict(rows=72, block_k=8, nbuf=2, band_rows=24), **bad}
+        with pytest.raises(ValueError):
+            WP.check_ring(**args)
+    with pytest.raises(ValueError):         # 300-row bands: no TMA box
+        WP.check_ring(300, 8, 1, 300)
+    t = torch.from_numpy
+    slab, ys0, xs0, par, rows, live = _proto_inputs()
+    with pytest.raises(ValueError):         # the dispatcher checks too
+        WP.window_colsum_ring(t(slab), t(ys0), t(xs0), rows, live,
+                              band_rows=16)
