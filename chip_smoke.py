@@ -497,9 +497,12 @@ def check_gather(gauss0, cfg, seed=2):
                    bit_exact=all(c["bit_exact"] for c in out)))
 
 
-def check_window_proto():
-    """K6-K8 on the experiment's workload against the plain version; the
-    ring at every sweep point, its default design timed."""
+def check_window_proto(per_kernel):
+    """K6-K8 on the experiment's workload against the plain version.  K6
+    and K7 (strip owners) bit for bit on the uniform, clustered and
+    out-of-contract sets, two launches equal, their device plan equal to
+    the host twin ``strip_plan``; the ring at every sweep point, its
+    default design timed."""
     from sift_tpu_torch.perf import window_proto as WP
     from sift_tpu_torch.perf.profile import device_ms
 
@@ -509,12 +512,44 @@ def check_window_proto():
     k = ys0.shape[0]
     bytes_ = (min(WP.LIVE * rows * WP.LANES * 4, slab.numel() * 4)
               + k * WP.LANES * 4 + 8 * k + 4)
+    sets = dict(uniform=wl, clustered=WP.clustered_workload("cuda"),
+                out_of_contract=WP.out_of_contract_workload("cuda"))
     ref = WP.window_colsum_plain(slab, ys0, xs0, rows, count,
                                  name="window_colsum_ring")
 
     def agrees(out, want):
         return (bool(torch.allclose(out, want, rtol=1e-5, atol=1e-4))
                 and bool((out[WP.LIVE:] == 0).all()))
+
+    def strip_checks(call, plain, par):
+        """One strip kernel on every set; each set's checks and, for the
+        clustered set, its device time."""
+        res = {}
+        for label, s in sets.items():
+            plan = {}
+            ker, again = call(s, plan), call(s, None)
+            pla = plain(s)
+            torch.cuda.synchronize()
+            host = WP.strip_plan(s["ys0"], s["xs0"], s["count"], WP.H, WP.W,
+                                 s["rows"], *WP.STRIP_DEFAULT)
+            res[label] = dict(
+                rows=s["rows"], bit_exact=bool(torch.equal(ker, pla)),
+                bit_reproducible=bool(torch.equal(ker, again)),
+                rows_past_count_zero=bool((ker[WP.LIVE:] == 0).all()),
+                plan_matches=WP.plan_matches(plan, host),
+                n_items=host["n_items"], max_loads=int(host["loads"].max()),
+                max_abs_err=float((ker - pla).abs().max()))
+        res["clustered"]["device_ms"] = device_ms(
+            lambda: call(sets["clustered"], None), name="colsum_")
+        res["passed"] = all(v["bit_exact"] and v["bit_reproducible"]
+                            and v["rows_past_count_zero"]
+                            and v["plan_matches"]
+                            for v in res.values() if isinstance(v, dict))
+        res["design"] = WP.strip_design(slab.device, k, WP.H, WP.W, rows,
+                                        *WP.STRIP_DEFAULT, par=par)
+        res["ptxas"] = [e for e in per_kernel if "colsum_bucket" in e["kernel"]
+                        or "colsum_strip" in e["kernel"]]
+        return res
 
     sweep = []
     for bk, nbuf, band in WP.SWEEP:
@@ -525,36 +560,50 @@ def check_window_proto():
                                            band),
                           matches_plain=agrees(out, ref),
                           max_abs_err=float((out - ref).abs().max())))
+    static = lambda s, plan: WP.window_colsum_static_cuda(
+        s["slab"], s["ys0"], s["xs0"], s["rows"], s["count"], plan=plan)
+    static_plain = lambda s: WP.window_colsum_plain(
+        s["slab"], s["ys0"], s["xs0"], s["rows"], s["count"])
+    par_k = lambda s, plan: WP.window_colsum_par_cuda(
+        s["slab"], s["ys0"], s["xs0"], s["par"], s["rows"], s["count"], 8,
+        plan=plan)
+    par_plain = lambda s: WP.window_colsum_plain(
+        s["slab"], s["ys0"], s["xs0"], s["rows"], s["count"], s["par"], 8,
+        name="window_colsum_par")
+    strip_tol = ("torch.equal to the plain version (float32 rows summed in "
+                 "order) on the uniform, clustered and out-of-contract sets;"
+                 " two launches equal; rows past count zero; device plan == "
+                 "strip_plan")
     runs = (
         ("window_colsum_static", "scripts/dma_proto.py:86",
-         lambda: WP.window_colsum_static_cuda(slab, ys0, xs0, rows, count),
-         lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count), 0, {}),
+         lambda: static(wl, None), lambda: static_plain(wl), 0,
+         strip_checks(static, static_plain, False), strip_tol),
         ("window_colsum_par", "scripts/dma_proto.py:123",
-         lambda: WP.window_colsum_par_cuda(slab, ys0, xs0, par, rows,
-                                           count),
-         lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count, par, 8,
-                                        name="window_colsum_par"),
-         WP.NPAR * 4 * k, {}),
+         lambda: par_k(wl, None), lambda: par_plain(wl), WP.NPAR * 4 * k,
+         strip_checks(par_k, par_plain, True), strip_tol),
         ("window_colsum_ring", "scripts/dma_proto.py:196",
          lambda: WP.window_colsum_ring_cuda(slab, ys0, xs0, rows, count),
          lambda: WP.window_colsum_plain(slab, ys0, xs0, rows, count,
                                         name="window_colsum_ring"), 0,
          dict(design=WP.ring_design(slab.device, rows, *WP.RING_DEFAULT),
-              sweep=sweep)))
+              sweep=sweep),
+         "allclose rtol 1e-5 atol 1e-4 (sums of 72 rows in another order); "
+         "rows past count zero"))
     entries = []
-    for name, replaces, fn, plain, more_bytes, extra in runs:
+    for name, replaces, fn, plain, more_bytes, extra, tol in runs:
         ker, pla = fn(), plain()
         torch.cuda.synchronize()
-        ok = agrees(ker, pla) and all(e["matches_plain"]
-                                      for e in extra.get("sweep", ()))
+        if "sweep" in extra:
+            ok = agrees(ker, pla) and all(e["matches_plain"]
+                                          for e in extra["sweep"])
+        else:
+            ok = extra.pop("passed")
         entries.append(finish_entry(
             name=name, source="sift_tpu_torch/csrc/window_proto.cu",
             replaces=replaces,
             shapes=dict(slab=list(slab.shape), capacity=k, live=WP.LIVE,
                         rows=rows, lanes=WP.LANES),
-            max_abs_err=float((ker - pla).abs().max()),
-            tolerance="allclose rtol 1e-5 atol 1e-4 (sums of 72 rows in "
-                      "another order); rows past count zero",
+            max_abs_err=float((ker - pla).abs().max()), tolerance=tol,
             passed=ok, ms=time_ms(fn), plain_ms=time_ms(plain, reps=10,
                                                         warm=2),
             bytes_=bytes_ + more_bytes, ops=WP.LIVE * rows * WP.LANES,
@@ -782,7 +831,7 @@ def main() -> int:
                            "tolerance")}
         main_e["passed"] = main_e["passed"] and syn_e["passed"]
     k4 = check_gather(gauss[0], cfg)
-    kernels = [k1, k5, k2, k3, k4] + check_window_proto()
+    kernels = [k1, k5, k2, k3, k4] + check_window_proto(per_kernel)
 
     # -- main path --------------------------------------------------------
     torch.cuda.synchronize()

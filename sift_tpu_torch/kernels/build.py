@@ -125,8 +125,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         "sift_orientation_hist_geometry": [i, i, i, pll, pi],
         "sift_descriptor_hist": hist,
         "sift_gather_windows": [p, p, p, p, p, i, i, i, i, i, i, p],
-        "sift_window_colsum_static": [p, p, p, p, p, i, i, i, i, i, p],
-        "sift_window_colsum_par": [p, p, p, p, p, p, i, i, i, i, i, p],
+        # slab, ys0, xs0, [par,] count, out, scratch, k_cap, h, w, rows,
+        # [block_k,] strip_rows, chunk, warps, stream
+        "sift_window_colsum_static": [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                      p],
+        "sift_window_colsum_par": [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   i, p],
+        # k_cap, h, w, rows, strip_rows, chunk, warps, par, out[8]
+        "sift_window_colsum_strip_geometry": [i, i, i, i, i, i, i, i, pi],
         # slab, ys0, xs0, count, out, k_cap, h, w, rows, block_k, nbuf,
         # band_rows, grid, stream
         "sift_window_colsum_ring": [p, p, p, p, p, i, i, i, i, i, i, i, i,
