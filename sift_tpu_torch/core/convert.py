@@ -1,9 +1,10 @@
-"""State carried across packages: the static plan and the keypoint trees,
-as numpy.
+"""State carried across packages: the static plan, the keypoint trees and
+the geometry layer's problems, as numpy.
 
 There are no weights in this system; what a detector closes over is its
-``SiftPlan`` (operators and capacities) and what it hands on are keypoint
-trees.  These helpers build the port's objects from plain numpy arrays and
+``SiftPlan`` (operators and capacities), what it hands on are keypoint
+trees, and what the SfM layer works on are bundle-adjustment problems and
+pose graphs.  These helpers build the port's objects from plain numpy arrays and
 dicts — for example the JAX package's own plan operators — and turn results
 back into numpy, so the two packages can be run on identical state.
 """
@@ -115,3 +116,63 @@ def result_to_numpy(res: SiftResult) -> dict:
     out["count"] = int(res.count)
     out["raw_count"] = int(res.raw_count)
     return out
+
+
+def _fields_as_numpy(obj, fields) -> Dict[str, np.ndarray]:
+    """A dict or NamedTuple of arrays -> dict of numpy arrays."""
+    get = obj.get if isinstance(obj, dict) else \
+        (lambda k: getattr(obj, k))
+    return {k: np.asarray(get(k)) for k in fields}
+
+
+def ba_problem_from_numpy(fields, device=None):
+    """geometry/ba.BAProblem from a dict or NamedTuple of arrays (e.g. the
+    JAX package's own ``BAProblem``): floats keep their dtype (float64
+    stays float64), indices become int64, ``valid`` bool, the intrinsics
+    0-dim tensors of the points' dtype."""
+    from sift_tpu_torch.geometry.ba import BAProblem
+
+    a = _fields_as_numpy(fields, BAProblem._fields)
+    t = lambda v: torch.as_tensor(np.array(v), device=device)
+    dt = t(a["points"]).dtype
+    return BAProblem(
+        rotations=t(a["rotations"]), translations=t(a["translations"]),
+        points=t(a["points"]),
+        cam_idx=t(a["cam_idx"]).to(torch.int64),
+        pt_idx=t(a["pt_idx"]).to(torch.int64),
+        uv=t(a["uv"]), valid=t(a["valid"]).to(torch.bool),
+        fx=t(a["fx"]).to(dt), fy=t(a["fy"]).to(dt), cx=t(a["cx"]).to(dt),
+        cy=t(a["cy"]).to(dt))
+
+
+def pose_graph_from_numpy(fields, device=None):
+    """geometry/posegraph.PoseGraph from a dict or NamedTuple of arrays
+    (e.g. the JAX package's own ``PoseGraph``)."""
+    from sift_tpu_torch.geometry.posegraph import PoseGraph
+
+    a = _fields_as_numpy(fields, PoseGraph._fields)
+    t = lambda v: torch.as_tensor(np.array(v), device=device)
+    return PoseGraph(
+        rotations=t(a["rotations"]), translations=t(a["translations"]),
+        pose_valid=t(a["pose_valid"]).to(torch.bool),
+        edge_i=t(a["edge_i"]).to(torch.int32),
+        edge_j=t(a["edge_j"]).to(torch.int32),
+        rel_rot=t(a["rel_rot"]), rel_t=t(a["rel_t"]),
+        edge_weight=t(a["edge_weight"]))
+
+
+def sift_result_from_numpy(fields: Dict[str, np.ndarray],
+                           device=None) -> SiftResult:
+    """SiftResult from the dict ``result_to_numpy`` returns (keypoint
+    fields, ``descriptors``, ``count``, ``raw_count``) — the inverse of
+    ``result_to_numpy``, and the JAX package's result taken as numpy."""
+    kp = keypoints_from_numpy({k: fields[k] for k in Keypoints._fields
+                               if k in fields}, device)
+    return SiftResult(
+        keypoints=kp,
+        descriptors=torch.as_tensor(np.array(fields["descriptors"]),
+                                    device=device),
+        count=torch.as_tensor(np.array(fields["count"]),
+                              device=device).to(torch.int32),
+        raw_count=torch.as_tensor(np.array(fields["raw_count"]),
+                                  device=device).to(torch.int32))

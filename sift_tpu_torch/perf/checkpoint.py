@@ -8,6 +8,9 @@ contract: ``params`` (config), ``input`` (stage inputs for octave 0),
 ``expected`` (stage outputs for octave 0).  File names and npz keys are the
 JAX package's, so either package reads and replays the other's checkpoint.
 
+``save_ba_state`` / ``load_ba_state`` checkpoint a bundle adjustment's
+state mid-LM with the JAX package's keys.
+
 Captured stages mirror the seven ``HostInterface::run*`` targets
 (interface/HostInterface.hh:11-69): filter, resize, minus, find_peaks,
 adjust_pts, orientation_hist, descriptor.
@@ -150,6 +153,32 @@ def load_golden(path: str):
     inputs = dict(np.load(os.path.join(path, INPUT_FILE)))
     expected = dict(np.load(os.path.join(path, EXPECTED_FILE)))
     return params, inputs, expected
+
+
+def save_ba_state(path: str, state, iteration: int) -> None:
+    """Checkpoint a BAState mid-LM: the JAX package's npz keys
+    (``iteration`` + the BAState fields), so either package reads the
+    other's file.  Atomic write (tmp + rename), so a worker dying mid-save
+    never leaves a torn checkpoint."""
+    arrs = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+            for k, v in state._asdict().items()}
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, iteration=np.int64(iteration), **arrs)
+    os.replace(tmp, path)
+
+
+def load_ba_state(path: str):
+    """Returns (BAState of host (CPU) tensors, iteration) — (None, 0) if
+    no checkpoint exists (fresh start)."""
+    from sift_tpu_torch.geometry.ba import BAState
+
+    if not os.path.exists(path):
+        return None, 0
+    d = dict(np.load(path, allow_pickle=False))
+    it = int(d.pop("iteration"))
+    return BAState(**{k: torch.from_numpy(np.array(d[k]))
+                      for k in BAState._fields}), it
 
 
 def config_from_params(params) -> SiftConfig:

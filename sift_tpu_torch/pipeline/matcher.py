@@ -4,60 +4,104 @@ Counterpart of ``sift_tpu/pipeline/matcher.py``: all-pairs squared L2 via
 one Gram matrix product (||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b), per-query
 top-2 minima, and the ratio test applied to the *squared* distances (min1 <
 ratio * min2, as the reference hard-codes with 0.8, Match.cu:171-175).
-Unmatched queries return -1.  The Gram product is a plain large matrix
-product and goes to ``torch.matmul``.
+Unmatched queries return -1.
+
+The train set may carry leading batch axes (``[..., S, 128]``): one query
+set is then matched against each train set of the stack, as the JAX
+package's loop closure does with ``jax.vmap(match_brute_force,
+in_axes=(None, 0, None, 0))``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+GRAM_ROUTES = ("f32", "tensor_cores")
 
 
 def _is_int(t: torch.Tensor) -> bool:
     return not (t.is_floating_point() or t.is_complex())
 
 
+@contextlib.contextmanager
+def _tf32_off():
+    """TF32 off for the products inside, whatever the process set."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gram_u8(query: torch.Tensor, train: torch.Tensor,
+            route: str = "f32") -> torch.Tensor:
+    """Exact float32 Gram product of integer descriptors (0..255).
+
+    query [..., Q, D], train [..., S, D] -> [..., Q, S] float32.  Every
+    product and partial sum is an integer below 2^24 (128 * 255^2), so
+    both routes are exact:
+      * ``"f32"``: float32 operands, TF32 off for the call;
+      * ``"tensor_cores"``: bfloat16 operands (0..255 are exact in 8
+        significant bits) with a float32 RESULT.  On the card this is one
+        bf16 tensor-core product with f32 output (``out_dtype``); on the
+        CPU the same arithmetic runs as a float32 product of the bf16
+        values.  A bf16 result would keep only 8 significant bits of
+        values up to 8.3e6 — never take one."""
+    if route == "f32":
+        with _tf32_off():
+            return torch.matmul(query.to(torch.float32),
+                                train.to(torch.float32).transpose(-1, -2))
+    if route != "tensor_cores":
+        raise ValueError(f"gram route {route!r} not in {GRAM_ROUTES}")
+    qb = query.to(torch.bfloat16)
+    tb = train.to(torch.bfloat16).transpose(-1, -2)
+    if not qb.is_cuda:
+        return torch.matmul(qb.to(torch.float32), tb.to(torch.float32))
+    lead = torch.broadcast_shapes(qb.shape[:-2], tb.shape[:-2])
+    q3 = qb.expand(*lead, *qb.shape[-2:]).reshape(-1, *qb.shape[-2:])
+    t3 = tb.expand(*lead, *tb.shape[-2:]).reshape(-1, *tb.shape[-2:])
+    out = torch.bmm(q3, t3, out_dtype=torch.float32)
+    return out.reshape(*lead, *out.shape[-2:])
+
+
 def match_brute_force(query: torch.Tensor, train: torch.Tensor,
                       q_valid=None, t_valid=None,
                       ratio: float = 0.8) -> torch.Tensor:
-    """query: [Q, 128]; train: [S, 128] — uint8 (0..255 quantised storage,
-    config.descriptor_dtype="uint8") or float (0..255/0..512 quantised).
-    Returns [Q] int32: index into train, or -1."""
+    """query: [Q, 128]; train: [..., S, 128] — uint8 (0..255 quantised
+    storage, config.descriptor_dtype="uint8") or float (0..255/0..512
+    quantised); ``t_valid`` [..., S].  Returns [..., Q] int32: index into
+    train, or -1."""
     if _is_int(query) and _is_int(train):
-        # u8-quantised descriptors: 0..255 integers are exact in bf16 (8
-        # significant bits) and every product/sum stays below 2^24
-        # (128 * 255^2 < 2^24), so on a CUDA device the bf16 tensor-core
-        # Gram product with f32 accumulation is BIT-IDENTICAL to the f32
-        # one; on the CPU it simply runs in f32.  The ratio test is scale
+        # u8-quantised descriptors: the Gram product is exact in float32
+        # (gram_u8), as the JAX package's bf16 product with
+        # preferred_element_type=float32 is.  The ratio test is scale
         # invariant, so the reference's 0.25 pre-scale is dropped here.
         qf = query.to(torch.float32)
         tf = train.to(torch.float32)
-        qn = torch.sum(qf * qf, -1, keepdim=True)       # [Q, 1]
-        tn = torch.sum(tf * tf, -1, keepdim=True).T     # [1, S]
-        if query.is_cuda:
-            gram = torch.matmul(query.to(torch.bfloat16),
-                                train.to(torch.bfloat16).T
-                                ).to(torch.float32)
-        else:
-            gram = torch.matmul(qf, tf.T)
-        d2 = qn + tn - 2.0 * gram                       # [Q, S]
+        qn = torch.sum(qf * qf, -1, keepdim=True)            # [Q, 1]
+        tn = torch.sum(tf * tf, -1).unsqueeze(-2)            # [..., 1, S]
+        d2 = qn + tn - 2.0 * gram_u8(query, train)
     else:
         q = query.to(torch.float32) * 0.25
         t = train.to(torch.float32) * 0.25
-        qn = torch.sum(q * q, -1, keepdim=True)         # [Q, 1]
-        tn = torch.sum(t * t, -1, keepdim=True).T       # [1, S]
-        d2 = qn + tn - 2.0 * torch.matmul(q, t.T)
-    d2 = torch.clamp(d2, min=0.0)
+        qn = torch.sum(q * q, -1, keepdim=True)              # [Q, 1]
+        tn = torch.sum(t * t, -1).unsqueeze(-2)              # [..., 1, S]
+        with _tf32_off():
+            d2 = qn + tn - 2.0 * torch.matmul(q, t.transpose(-1, -2))
+    d2 = torch.clamp(d2, min=0.0)                            # [..., Q, S]
 
     # Invalid-entry sentinel: must exceed any real distance (the unscaled
     # u8 path reaches 128*255^2 ~ 8.3e6).
     big = torch.full((), 1e9, dtype=torch.float32, device=d2.device)
     if t_valid is not None:
-        d2 = torch.where(t_valid[None, :], d2, big)
+        d2 = torch.where(t_valid.unsqueeze(-2), d2, big)
 
     min1, idx1 = torch.min(d2, -1)
-    cols = torch.arange(d2.shape[1], device=d2.device)[None, :]
-    d2b = torch.where(cols == idx1[:, None], big, d2)
+    cols = torch.arange(d2.shape[-1], device=d2.device)
+    d2b = torch.where(cols == idx1.unsqueeze(-1), big, d2)
     min2 = torch.min(d2b, -1).values
 
     matched = min1 < ratio * min2

@@ -137,3 +137,70 @@ def test_bench_image_is_deterministic_and_textured():
     det = stt.SiftDetector(stt.SiftConfig(width=160, height=120,
                                           num_features=256), device="cpu")
     assert int(det.detect_and_compute(a).count) > 30
+
+
+@pytest.mark.parametrize("route", ["f32", "tensor_cores"])
+def test_gram_routes_exact_on_uint8_extremes(route):
+    """The Gram helper's routes are exact float32 products of integer
+    descriptors: on all-255 rows (the largest value, 128 * 255^2 =
+    8,323,200, which a bfloat16 RESULT would round to 8,323,072) and on
+    mixed extremes, equal to the int64 product.  On the CPU the
+    tensor-core route runs its arithmetic (bf16 operands, f32 result) as
+    an f32 product of the bf16 values."""
+    from sift_tpu_torch.pipeline.matcher import gram_u8
+    rng = np.random.default_rng(3)
+    q = rng.choice([0, 1, 127, 128, 254, 255], (64, 128)).astype(np.uint8)
+    t = rng.integers(0, 256, (96, 128)).astype(np.uint8)
+    q[:8] = 255
+    t[:8] = 255
+    want = q.astype(np.int64) @ t.astype(np.int64).T
+    got = gram_u8(torch.from_numpy(q), torch.from_numpy(t), route)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    assert want[0, 0] == 128 * 255 * 255
+    # what a bfloat16 result loses at that size
+    assert float(torch.tensor(float(want[0, 0])).to(torch.bfloat16)) \
+        != want[0, 0]
+    # batched train axis
+    tt = np.stack([t, t[::-1]])
+    gb = gram_u8(torch.from_numpy(q), torch.from_numpy(tt), route)
+    np.testing.assert_array_equal(gb[1].numpy().astype(np.int64),
+                                  want[:, ::-1])
+    with pytest.raises(ValueError):
+        gram_u8(torch.from_numpy(q), torch.from_numpy(t), "bf16")
+
+
+def test_match_batched_train_axis_equals_loop_and_jax_vmap(descs):
+    """One query set against a [C, S, 128] stack of train sets (the loop
+    closure's call): equal to a Python loop of single calls, and to the
+    JAX package's jax.vmap(match_brute_force, in_axes=(None, 0, None, 0)),
+    zero-padded candidates included."""
+    import functools
+
+    import jax
+    query, train, qv, tv = descs
+    rng = np.random.default_rng(4)
+    stack = np.stack([train, train[rng.permutation(S)],
+                      np.zeros_like(train)])
+    tvs = np.stack([tv, tv[rng.permutation(S)], np.zeros(S, bool)])
+    mt = stt.match_brute_force(torch.from_numpy(query),
+                               torch.from_numpy(stack),
+                               torch.from_numpy(qv), torch.from_numpy(tvs))
+    assert tuple(mt.shape) == (3, Q) and mt.dtype == torch.int32
+    for c in range(3):
+        one = stt.match_brute_force(torch.from_numpy(query),
+                                    torch.from_numpy(stack[c]),
+                                    torch.from_numpy(qv),
+                                    torch.from_numpy(tvs[c]))
+        assert torch.equal(mt[c], one)
+    assert (mt[2] == -1).all() and (mt[0] >= 0).sum() > 50
+    mj = jax.vmap(functools.partial(sift_tpu.match_brute_force, ratio=0.8),
+                  in_axes=(None, 0, None, 0))(
+        jnp.asarray(query), jnp.asarray(stack), jnp.asarray(qv),
+        jnp.asarray(tvs))
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    # float descriptors take the same batched path
+    mf = stt.match_brute_force(torch.from_numpy(query.astype(np.float32)),
+                               torch.from_numpy(stack.astype(np.float32)),
+                               torch.from_numpy(qv), torch.from_numpy(tvs))
+    assert torch.equal(mf, mt)

@@ -177,6 +177,14 @@ names = [m.name for m in pkgutil.walk_packages(sift_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 assert len(names) >= 20, names
+geometry = ["sift_tpu_torch.geometry." + m for m in
+            ("se3", "twoview", "pnp", "ba", "posegraph", "trajectory",
+             "odometry")]
+others = ["sift_tpu_torch.io.image", "sift_tpu_torch.io.native",
+          "sift_tpu_torch.perf.telemetry", "sift_tpu_torch.tools.odometry",
+          "sift_tpu_torch.tools.reconstruct"]
+missing = sorted(set(geometry + others) - set(names))
+assert not missing, missing
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib"
        or m == "sift_tpu" or m.startswith("sift_tpu.")
