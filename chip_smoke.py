@@ -12,16 +12,23 @@ windows; ``sigma=1.97``: 4 shifted copies), the window-loading experiment
 (``perf/window_proto``), and the visual-odometry and reconstruction slice
 on rendered 752x480 scenes (``geometry/odometry.MonocularOdometry``, its
 checkpoint resume, loop closure, ``tools/reconstruct.py`` and
-``tools/odometry.py`` on PGM frames, float64 bundle adjustment).  Every
-hand-written CUDA kernel is held against its plain PyTorch version on the
-card, at the shapes its path gives it, and each path's launch counters are
-set to 0 just before it runs and read just after.  Phases (one JSON line
-each): ``device``, ``build``, ``main_path``, ``matcher_exact``,
-``replay``, ``flat_frame``, ``window_proto``, ``vo``, ``vo_capacity``,
-``vo_resume``, ``loop_closure``, ``reconstruct``, ``odometry_cli``,
-``ba_float64``, then the ``kernels`` line; any failure exits non-zero.
-Needs one CUDA device, ``nvcc`` and a C++ compiler (the native PGM
-loader); imports ``sift_tpu_torch``, ``torch`` and ``numpy`` only.  The
+``tools/odometry.py`` on PGM frames, float64 bundle adjustment), and the
+detector's remaining configurations and CLIs: OpenCV parity at
+``upscale=True`` on the committed cv2 oracle's three scenes, capacity
+tiers, the conv pyramid (``blur_impl="conv"``), ``tools/detect.py`` with
+its golden replayed by ``tools/perf.py``, and ``tools/extract_and_match.py
+--tiers``.  Every hand-written CUDA kernel is held against its plain
+PyTorch version on the card, at the shapes its path gives it, and each
+path's launch counters are set to 0 just before it runs and read just
+after.  Phases (one JSON line each): ``device``, ``build``, ``main_path``,
+``matcher_exact``, ``replay``, ``flat_frame``, ``window_proto``, ``vo``,
+``vo_capacity``, ``vo_resume``, ``loop_closure``, ``reconstruct``,
+``odometry_cli``, ``ba_float64``, ``cv2_parity``, ``tiers``,
+``conv_pyramid``, ``detect_cli``, ``extract_and_match_cli``, then the
+``kernels`` line; any failure exits non-zero.
+Needs one CUDA device, ``nvcc``, a C++ compiler (the native PGM loader)
+and the checkout's ``tests/data/cv2_parity_oracle.npz``; imports
+``sift_tpu_torch``, ``torch`` and ``numpy`` only.  The
 last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1176,8 +1184,8 @@ def run_slice(FD, EX, FS, width, height):
     """The sixth slice's phases, each with the frame kernels' counters set
     to 0 just before it: vo (then the frame kernels at its shapes),
     vo_resume, loop_closure, reconstruct, odometry_cli, ba_float64.
-    Returns the frame kernels' launches on the vo run and the K2 / K3
-    entries of the vo frame."""
+    Returns the frame kernels' launches on the vo run, the K2 / K3
+    entries of the vo frame and the rendered frames."""
     from sift_tpu_torch.perf.scenes import VO_FRAMES, render_sequence
 
     frames, gt, gt_poses = render_sequence(n_frames=VO_FRAMES, textured=True,
@@ -1188,7 +1196,421 @@ def run_slice(FD, EX, FS, width, height):
     run_reconstruct(FD, EX, FS, width, height)
     run_odometry_cli(FD, EX, FS, frames, gt_poses)
     check_ba_float64()
-    return vo["launches"], capacity
+    return vo["launches"], capacity, frames
+
+
+# ---------------------------------------------------------------------------
+# The detector's remaining configurations and CLIs
+# ---------------------------------------------------------------------------
+
+ORACLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "cv2_parity_oracle.npz")
+PARITY_FEATURES = 2000      # tests/test_pipeline.py's parity config
+TIERS = (1024, 2048)
+FALLBACK_TIER = 64          # the smallest tier _pick_tier can choose
+CLI_ITERS = 5
+LARGE_FRAME = (1200, 1920)  # the JAX docs' second frame size
+
+
+def stdout_of(fn, *args):
+    """``fn(*args)`` with its standard output captured; returns (the
+    output, the return value, the SystemExit code or None)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    code = ret = None
+    with contextlib.redirect_stdout(buf):
+        try:
+            ret = fn(*args)
+        except SystemExit as e:
+            code = e.code
+    return buf.getvalue(), ret, code
+
+
+def run_cv2_parity(FD, EX, FS):
+    """The three parity scenes of the committed cv2 oracle through the
+    port's detector on the card at tests/test_pipeline.py's config
+    (``upscale=True``, ``num_features=2000``), held to that file's four
+    gates (``perf/oracle.parity_gates``); each frame launches the four
+    frame kernels once and no plain version.  K2 / K3 are then held
+    against their plain versions at the photo's own inputs."""
+    from sift_tpu_torch import SiftConfig, SiftDetector
+    from sift_tpu_torch.core.convert import result_to_numpy
+    from sift_tpu_torch.perf import oracle as OR
+
+    orc = OR.load_parity_oracle(ORACLE_PATH)
+    scenes, bad, photo, total = {}, [], None, {}
+    for scene in OR.PARITY_SCENES:
+        img = orc[scene]["image"].astype(np.float32)
+        h, w = img.shape
+        det = SiftDetector(SiftConfig(width=w, height=h,
+                                      num_features=PARITY_FEATURES,
+                                      upscale=True))
+        det.warm_up()
+        f = torch.as_tensor(img, device=det.device)
+        zero_counters(FD, EX, FS)
+        res = det.detect_and_compute(f)
+        torch.cuda.synchronize()
+        counts = frame_launches(FD, EX, FS, 1, f"cv2_parity[{scene}]")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        gates = OR.parity_gates(result_to_numpy(res), orc[scene])
+        scenes[scene] = dict(size=[w, h], keypoints=int(res.count),
+                             cv2_keypoints=len(orc[scene]["x"]),
+                             launches=counts, **gates)
+        if not gates["ok"]:
+            bad.append(scene)
+        if scene == "photo":
+            photo = (det, f)
+    _, ori, desc = tap_stage_inputs(*photo)
+    k2 = check_orientation(ori, "cv2_photo")
+    k3 = check_descriptor(desc, "cv2_photo")
+    say({"phase": "cv2_parity", "cv2_version": orc["cv2_version"],
+         "num_features": PARITY_FEATURES, "upscale": True,
+         "scenes": scenes,
+         "orientation_hist": {k: k2[k] for k in ("passed", "max_abs_err",
+                                                  "max_rel_err")},
+         "descriptor_hist": {k: k3[k] for k in ("passed", "max_abs_err",
+                                                 "max_u8_diff")}})
+    if bad:
+        fail(f"cv2_parity: gates failed on {bad}")
+    if not (k2["passed"] and k3["passed"]):
+        fail("cv2_parity: K2 or K3 disagrees with its plain version")
+    return k2, k3, total
+
+
+def tap_stage_inputs(det, frame):
+    """One frame through ``det`` with the orientation and descriptor
+    wrappers' arguments recorded as the detector passes them (the dicts
+    check_orientation / check_descriptor take): the exact inputs of any
+    configuration — upscaled frames, tiers — with nothing rebuilt."""
+    from sift_tpu_torch.pipeline import detector as DT
+
+    taps, saved = {}, (DT.orientation_hist, DT.descriptor_hist)
+
+    def tap(name, fn):
+        def call(values, ys0, xs0, par, rows, lanes, count, impl):
+            taps[name] = dict(values=values, ys0=ys0, xs0=xs0, par=par,
+                              rows=rows, lanes=lanes, count=count)
+            return fn(values, ys0, xs0, par, rows, lanes, count=count,
+                      impl=impl)
+        return call
+
+    DT.orientation_hist = tap("ori", saved[0])
+    DT.descriptor_hist = tap("desc", saved[1])
+    try:
+        res = det.detect_and_compute(frame)
+    finally:
+        DT.orientation_hist, DT.descriptor_hist = saved
+    torch.cuda.synchronize()
+    return res, taps["ori"], taps["desc"]
+
+
+def same_result(a, b):
+    """Every keypoint field and the descriptors bit-equal up to the count,
+    and the rows past the count empty in ``b``."""
+    n = int(a.count)
+    if n != int(b.count) or int(a.raw_count) != int(b.raw_count):
+        return False
+    eq = all(torch.equal(getattr(a.keypoints, k)[:n],
+                         getattr(b.keypoints, k)[:n])
+             for k in a.keypoints._fields)
+    return bool(eq and torch.equal(a.descriptors[:n], b.descriptors[:n])
+                and not bool(b.keypoints.valid[n:].any())
+                and not bool(b.descriptors[n:].any()))
+
+
+def run_tiers(det, f1, FD, EX, FS):
+    """``SiftDetector(tiers=(1024, 2048))`` over the smoke frame twice:
+    the first frame runs at full capacity, the second picks 2048 and must
+    equal the full detector's result bit for bit.  The smallest tier a
+    frame can pick (64 rows, ``_pick_tier``'s floor) forced on the frame
+    must fill and fall back to the full result: the frame kernels run
+    twice, at the tier and at full capacity.  K2 / K3 are held against
+    their plain versions at the 2048-row inputs."""
+    from sift_tpu_torch import SiftDetector
+
+    cfg = det.config
+    full = det.detect_and_compute(f1)
+    tiered = SiftDetector(cfg, tiers=TIERS)
+    tiered.warm_up()
+    zero_counters(FD, EX, FS)
+    r1 = tiered.detect_and_compute(f1)
+    picked = tiered._pick_tier()
+    r2 = tiered.detect_and_compute(f1)
+    torch.cuda.synchronize()
+    counts = frame_launches(FD, EX, FS, 2, "tiers")
+    equal = same_result(full, r1) and same_result(full, r2)
+
+    tiny = SiftDetector(cfg, tiers=(FALLBACK_TIER,))
+    tiny.detect_and_compute(f1)
+    tiny._last_count = 5                       # force the 64-row tier
+    tiny_pick = tiny._pick_tier()
+    zero_counters(FD, EX, FS)
+    rf = tiny.detect_and_compute(f1)
+    torch.cuda.synchronize()
+    fallback_launches = dict(FS.launches)
+    fallback_exact = same_result(full, rf)
+
+    _, ori, desc = tap_stage_inputs(tiered, f1)
+    k2 = check_orientation(ori, f"tier_{picked}")
+    k3 = check_descriptor(desc, f"tier_{picked}")
+    line = {"phase": "tiers", "width": cfg.width, "height": cfg.height,
+            "num_features": cfg.num_features, "tiers": list(TIERS),
+            "keypoints": int(full.count), "raw_keypoints":
+            int(full.raw_count), "tier_picked": picked,
+            "launches": counts, "bit_equal_to_full": equal,
+            "fallback_tier": tiny_pick, "fallback_count": int(rf.count),
+            "fallback_exact": fallback_exact,
+            "fallback_launches": fallback_launches,
+            "kernel_rows": [int(ori["ys0"].shape[0]),
+                            int(desc["ys0"].shape[0])],
+            "frame_ms_tiered": time_ms(
+                lambda: tiered.detect_and_compute(f1)),
+            "frame_ms_full": time_ms(lambda: det.detect_and_compute(f1)),
+            "orientation_hist": {k: k2[k] for k in ("passed", "max_abs_err",
+                                                     "max_rel_err")},
+            "descriptor_hist": {k: k3[k] for k in ("passed", "max_abs_err",
+                                                    "max_u8_diff")}}
+    say(line)
+    if picked != TIERS[1] or not equal:
+        fail(f"tiers: picked {picked}, bit-equal {equal}")
+    if tiny_pick != FALLBACK_TIER or not fallback_exact \
+            or fallback_launches != {
+            "orientation_hist": 2, "descriptor_hist": 2}:
+        fail(f"tiers: fallback exact {fallback_exact}, launches "
+             f"{fallback_launches}")
+    if not (k2["passed"] and k3["passed"]):
+        fail("tiers: K2 or K3 disagrees with its plain version")
+    return k2, k3, counts
+
+
+def run_conv_pyramid(det, f1, r_matmul, FD, EX, FS):
+    """``blur_impl="conv"`` on the card: its pyramid against the matmul
+    pyramid (atol 2e-2 on octaves 0-2, tests/test_pyramid.py:72-81) and
+    against the conv pyramid on the CPU (atol 2e-4) — computed with
+    cuDNN's TF32 switched ON for the process, which the conv blur must
+    turn off for its own calls — then one whole conv-mode frame."""
+    import dataclasses
+
+    from sift_tpu_torch import SiftDetector, build_plan
+    from sift_tpu_torch.core.convert import result_to_numpy
+    from sift_tpu_torch.ops.pyramid import gaussian_pyramid, plan_operators
+    from sift_tpu_torch.perf.compare import pair_keypoints
+
+    cfg = dataclasses.replace(det.config, blur_impl="conv",
+                              downsample="nearest")
+    plan = build_plan(cfg)
+    ops = plan_operators(plan, f1.device)
+    pm = gaussian_pyramid(det.plan, f1, plan_operators(det.plan, f1.device))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pc = gaussian_pyramid(plan, f1, ops)
+        torch.cuda.synchronize()
+        restored = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    pcpu = gaussian_pyramid(plan, f1.cpu())
+    err_mm = [float((a - b).abs().max()) for a, b in zip(pc[:3], pm[:3])]
+    err_cpu = [float((a.cpu() - b).abs().max()) for a, b in zip(pc, pcpu)]
+    dc = SiftDetector(cfg)
+    dc.warm_up()
+    zero_counters(FD, EX, FS)
+    rc = dc.detect_and_compute(f1)
+    torch.cuda.synchronize()
+    counts = frame_launches(FD, EX, FS, 1, "conv_pyramid")
+    a, b = result_to_numpy(r_matmul), result_to_numpy(rc)
+    ia, _ = pair_keypoints(a, b)
+    paired = len(ia) / max(a["count"], b["count"], 1)
+    line = {"phase": "conv_pyramid", "width": cfg.width,
+            "height": cfg.height, "octaves": cfg.num_octaves,
+            "max_abs_err_vs_matmul_octaves_0_2": err_mm,
+            "max_abs_err_vs_cpu_conv": max(err_cpu),
+            "max_abs_err_vs_cpu_conv_per_octave": err_cpu,
+            "cudnn_tf32_on_outside": restored,
+            "keypoints": int(rc.count), "keypoints_matmul": a["count"],
+            "paired_with_matmul_frame": paired, "launches": counts,
+            "frame_ms_conv": time_ms(lambda: dc.detect_and_compute(f1)),
+            "frame_ms_matmul": time_ms(lambda: det.detect_and_compute(f1)),
+            "pyramid_ms_conv": time_ms(lambda: gaussian_pyramid(plan, f1,
+                                                                ops)),
+            "pyramid_ms_matmul": time_ms(lambda: gaussian_pyramid(
+                det.plan, f1, plan_operators(det.plan, f1.device)))}
+    say(line)
+    if max(err_mm) > 2e-2 or max(err_cpu) > 2e-4 or not restored:
+        fail(f"conv_pyramid: errors {err_mm} / {max(err_cpu)}, TF32 "
+             f"setting kept {restored}")
+    if int(rc.count) <= 300 or paired < 0.99:
+        fail(f"conv_pyramid: {int(rc.count)} keypoints, {paired:.2%} "
+             "paired with the matmul frame")
+    return line
+
+
+def run_detect_cli(det, img1, FD, EX, FS, WG):
+    """tools/detect.py on the smoke frame written as PGM (the native
+    loader): its keypoint count equals the detector's on the same frame,
+    and the golden it captures with --debug-path passes all seven stages
+    of tools/perf.py, K4 launched per_pass times in each.  Then the CLI on
+    a 1920x1200 frame, timed."""
+    import re
+
+    from sift_tpu_torch.io.image import load_grayscale
+    from sift_tpu_torch.perf.benchimg import bench_image
+    from sift_tpu_torch.perf.scenes import write_pgm
+    from sift_tpu_torch.tools import detect
+    from sift_tpu_torch.tools import perf as perf_cli
+
+    cfg = det.config
+    kcap = det.plan.octaves[0].kpt_cap
+    per_pass = 2 * -(-kcap // 1024) + -(-kcap // 512)
+    with tempfile.TemporaryDirectory() as d:
+        pgm, golden = f"{d}/frame.pgm", f"{d}/golden"
+        write_pgm(pgm, img1)
+        want = int(det.detect_and_compute(load_grayscale(pgm)).count)
+        torch.cuda.synchronize()
+        zero_counters(FD, EX, FS, WG)
+        out, _, _ = stdout_of(detect.main, [pgm, "--iters", str(CLI_ITERS),
+                                            "--debug-path", golden])
+        torch.cuda.synchronize()
+        frames = frame_launches(FD, EX, FS, 1 + CLI_ITERS, "detect_cli")
+        n_capture = WG.launches["gather_windows"]
+        zero_counters(WG)
+        rep, _, code = stdout_of(perf_cli.main, [golden])
+        torch.cuda.synchronize()
+        n_replay = WG.launches["gather_windows"]
+        plain = WG.plain_calls["gather_windows"]
+        large = f"{d}/large.pgm"
+        write_pgm(large, bench_image(*LARGE_FRAME, seed=0))
+        zero_counters(FD, EX, FS)
+        big, _, _ = stdout_of(detect.main, [large, "--iters", str(CLI_ITERS),
+                                            "--num-features", "5000"])
+        torch.cuda.synchronize()
+        big_launches = frame_launches(FD, EX, FS, 1 + CLI_ITERS,
+                                      "detect_cli[1920x1200]")
+    num = lambda pat, text: float(re.search(pat, text).group(1))
+    n = int(num(r"keypoints: (\d+)", out))
+    n_big = int(num(r"keypoints: (\d+)", big))
+    passed = rep.count("PASS")
+    line = {"phase": "detect_cli", "width": cfg.width, "height": cfg.height,
+            "keypoints": n, "keypoints_detector": want,
+            "median_ms": num(r"median ([0-9.]+) ms", out),
+            "oracle_written": "cv2 oracle written" in out,
+            "launches": frames, "replay_exit": code,
+            "stages_passed": passed,
+            "gather_windows_launches": {"capture": n_capture,
+                                        "replay": n_replay,
+                                        "expected_each": per_pass},
+            "plain_calls": plain,
+            "large": {"size": list(LARGE_FRAME[::-1]), "keypoints": n_big,
+                      "median_ms": num(r"median ([0-9.]+) ms", big),
+                      "min_ms": num(r"min ([0-9.]+) ms", big),
+                      "launches": big_launches},
+            "output": out.strip().splitlines(),
+            "replay_output": rep.strip().splitlines()}
+    say(line)
+    if n != want or passed != 7 or code != 0:
+        fail(f"detect_cli: {n} keypoints (detector {want}), {passed} "
+             f"stages passed, exit {code}")
+    if n_capture != per_pass or n_replay != per_pass or plain:
+        fail(f"detect_cli: gather_windows launched {n_capture} + "
+             f"{n_replay} (expected {per_pass} each), plain {plain}")
+    if n_big <= 300:
+        fail(f"detect_cli: {n_big} keypoints at 1920x1200")
+    return n_capture + n_replay, frames, big_launches
+
+
+def run_extract_and_match_cli(frames, FD, EX, FS):
+    """tools/extract_and_match.py --tiers on the textured VO frames as a
+    PGM directory: one line per frame, matches to the previous frame on
+    every frame after the first, each count equal to a library run of the
+    same frames (a full-capacity SiftDetector + match_brute_force), and the
+    frame kernels launched as often as by the library's tiered detector
+    (its warm-up, then once per frame, twice where a tier saturates)."""
+    import re
+
+    from sift_tpu_torch import SiftConfig, SiftDetector, match_brute_force
+    from sift_tpu_torch.io.image import load_image_directory
+    from sift_tpu_torch.perf.scenes import VO_FEATURES, write_pgm
+    from sift_tpu_torch.tools import extract_and_match
+
+    tiers = tuple(t for t in (VO_FEATURES // 4, VO_FEATURES // 2)
+                  if t >= 256)
+    with tempfile.TemporaryDirectory() as d:
+        for i, f in enumerate(frames):
+            write_pgm(f"{d}/frame_{i:04d}.pgm", f)
+        _, imgs = load_image_directory(d)
+        zero_counters(FD, EX, FS)
+        t0 = time.perf_counter()
+        out, _, _ = stdout_of(extract_and_match.main, [d, "--tiers"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cli_counts = {**FD.launches, **EX.launches, **FS.launches}
+    if any({**FD.plain_calls, **EX.plain_calls, **FS.plain_calls}.values()):
+        fail("extract_and_match_cli: a plain version ran")
+    lines = out.strip().splitlines()
+    got = [re.match(r"\[(\d+)\] \S+: (\d+) kpts(?:, (\d+) matches to "
+                    r"prev)? \(([0-9.]+) ms\)", ln) for ln in lines]
+    h, w = imgs[0].shape
+    cfg = SiftConfig(width=w, height=h, num_features=VO_FEATURES)
+    lib = SiftDetector(cfg)
+    lib_tiered = SiftDetector(cfg, tiers=tiers)
+    zero_counters(FD, EX, FS)
+    lib_tiered.warm_up()
+    picked, per_frame = [], []
+    for img in imgs:
+        picked.append(lib_tiered._pick_tier())
+        before = FS.launches["descriptor_hist"]
+        lib_tiered.detect_and_compute(img)
+        per_frame.append(FS.launches["descriptor_hist"] - before)
+    torch.cuda.synchronize()
+    lib_counts = {**FD.launches, **EX.launches, **FS.launches}
+    kpts, matched, prev = [], [], None
+    for img in imgs:
+        res = lib.detect_and_compute(img)
+        kpts.append(int(res.count))
+        matched.append(None if prev is None else int((match_brute_force(
+            res.descriptors, prev.descriptors, res.keypoints.valid,
+            prev.keypoints.valid) >= 0).sum()))
+        prev = res
+    cli_kpts = [int(g.group(2)) for g in got if g]
+    cli_matched = [int(g.group(3)) if g and g.group(3) else None
+                   for g in got]
+    line = {"phase": "extract_and_match_cli", "frames": len(imgs),
+            "width": w, "height": h, "num_features": VO_FEATURES,
+            "tiers": list(tiers), "tiers_picked": picked,
+            "kernel_runs_per_frame": per_frame,
+            "keypoints": cli_kpts, "matches": cli_matched,
+            "library_keypoints": kpts, "library_matches": matched,
+            "launches": cli_counts, "library_launches": lib_counts,
+            "seconds": wall,
+            "frame_ms": [float(g.group(4)) for g in got if g]}
+    say(line)
+    if len(lines) != len(imgs) or not all(got):
+        fail(f"extract_and_match_cli: output\n{out}")
+    if cli_kpts != kpts or cli_matched != matched \
+            or not all(m > 0 for m in matched[1:]):
+        fail("extract_and_match_cli: counts differ from the library run")
+    if cli_counts != lib_counts or any(r not in (1, 2) for r in per_frame):
+        fail(f"extract_and_match_cli: launches {cli_counts}, library "
+             f"{lib_counts}, per frame {per_frame}")
+    return line
+
+
+def run_detector_slice(det, f1, r1, img1, frames, FD, EX, FS, WG):
+    """The seventh slice's phases, each with its counters set to 0 just
+    before it: cv2_parity, tiers, conv_pyramid, detect_cli,
+    extract_and_match_cli.  Returns the K2 / K3 entries of the parity
+    photo and of the tier, the frame kernels' launches by phase and K4's
+    launches in detect_cli."""
+    *photo, parity = run_cv2_parity(FD, EX, FS)
+    *tier, tiers = run_tiers(det, f1, FD, EX, FS)
+    conv = run_conv_pyramid(det, f1, r1, FD, EX, FS)["launches"]
+    k4, cli, cli_large = run_detect_cli(det, img1, FD, EX, FS, WG)
+    em = run_extract_and_match_cli(frames, FD, EX, FS)["launches"]
+    launches = {"cv2_parity": parity, "tiers": tiers, "conv_pyramid": conv,
+                "detect_cli": cli, "detect_cli_1920x1200": cli_large,
+                "extract_and_match_cli": em}
+    return photo, tier, launches, k4
 
 
 # ---------------------------------------------------------------------------
@@ -1353,12 +1775,24 @@ def main() -> int:
              "version or with another scheme")
     for e in kernels[5:]:
         e["launches"] = WP.launches[e["name"]]
-    vo_launches, vo_entries = run_slice(FD, EX, FS, WIDTH, HEIGHT)
+    vo_launches, vo_entries, vo_frames = run_slice(FD, EX, FS, WIDTH,
+                                                   HEIGHT)
     for e in kernels[:4]:
         e["launches_vo"] = vo_launches[e["name"]]
     for main_e, vo_e in zip((k2, k3), vo_entries):
         main_e["vo_frame"] = {key: vo_e[key] for key in vo_e
                               if key not in ENTRY_KEYS}
+    photo, tier, by_phase, k4_cli = run_detector_slice(
+        det, f1, r1, img1, vo_frames, FD, EX, FS, WG)
+    for e in kernels[:4]:
+        e["launches_detector_slice"] = {p: c[e["name"]]
+                                        for p, c in by_phase.items()}
+    k4["launches_detect_cli"] = k4_cli
+    for main_e, *subs in ((k2, photo[0], tier[0]), (k3, photo[1], tier[1])):
+        for sub in subs:
+            main_e[sub["inputs"]] = {key: sub[key] for key in sub
+                                     if key not in ENTRY_KEYS}
+            main_e["passed"] = main_e["passed"] and sub["passed"]
     say({"kernels": kernels})
     bad = [e["name"] for e in kernels if not e["passed"]]
     if bad:

@@ -73,8 +73,8 @@ class SiftConfig:
     # Per-octave candidate capacity; None -> heuristic in SiftPlan.
     max_candidates_per_octave: Optional[int] = None
     # Pyramid blur implementation: "matmul" (composed banded operators as
-    # dense matrix products).  "conv" is accepted by the dataclass for
-    # config parity with sift_tpu but not implemented by this package yet.
+    # dense matrix products) or "conv" (the reference's sequential per-layer
+    # chain of separable 1-D convolutions, ops/pyramid.py).
     blur_impl: str = "matmul"
     # Lowe ratio applied to *squared* distances, matching the reference's
     # in-kernel hardcoded test (sift_func/Match.cu:171-175).

@@ -112,14 +112,12 @@ class MonocularOdometry:
                  loop_edge_weight: float = 5.0,
                  loop_max_candidates: int = 8, telemetry=None,
                  device=None):
-        """``tiers`` (capacity tiers) are not ported: only ``()`` is
-        accepted.  ``device=None`` means the GPU (raises without one);
-        pass ``device="cpu"`` for the plain versions on the CPU."""
-        if tuple(tiers):
-            raise NotImplementedError("capacity tiers are not ported yet")
+        """``tiers``: the detector's capacity tiers (``SiftDetector``).
+        ``device=None`` means the GPU (raises without one); pass
+        ``device="cpu"`` for the plain versions on the CPU."""
         self.telemetry = _telemetry.get(telemetry)
         self.device = resolve_device(device)
-        self.detector = SiftDetector(config, device=self.device)
+        self.detector = SiftDetector(config, tiers=tiers, device=self.device)
         self.fx, self.fy, self.cx, self.cy = fx, fy, cx, cy
         self.ratio = ratio
         self.ransac_iters = ransac_iters

@@ -1,16 +1,28 @@
-"""Separable Gaussian blur as two dense matrix products.
+"""Separable Gaussian blur.
 
-Counterpart of ``sift_tpu/ops/blur.py`` (``blur_matmul``): the blur with
-precomputed banded operators (core/gaussian.blur_operator), boundary
-handling baked into the operator, layers batched by broadcasting.  These
-are large plain matrix products and go to ``torch.matmul`` in full float32
-(TF32 is switched off where the detector is built: the JAX pyramid runs at
-``Precision.HIGHEST``).
+Counterpart of ``sift_tpu/ops/blur.py``, two implementations:
+
+* ``blur_matmul`` — the blur as two dense matrix products with precomputed
+  banded operators (core/gaussian.blur_operator), boundary handling baked
+  into the operator, layers batched by broadcasting.  These are large
+  plain matrix products and go to ``torch.matmul`` in full float32 (TF32
+  is switched off where the detector is built: the JAX pyramid runs at
+  ``Precision.HIGHEST``).
+* ``blur_conv`` — reflect-101 padding by a static index gather, then a
+  vertical and a horizontal 1-D convolution (``blur_impl="conv"``).  The
+  JAX body is an XLA convolution, not a Pallas kernel; here it is
+  ``torch.nn.functional.conv2d`` (cuDNN on the card), run with cuDNN's
+  TF32 off for the call whatever the process set.
 """
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
+
+from sift_tpu_torch.core.gaussian import reflect101_index
 
 
 def blur_matmul(img: torch.Tensor, op_v: torch.Tensor,
@@ -22,3 +34,41 @@ def blur_matmul(img: torch.Tensor, op_v: torch.Tensor,
     """
     out = torch.matmul(op_v, img)
     return torch.matmul(out, op_h.transpose(-1, -2))
+
+
+@contextlib.contextmanager
+def _cudnn_tf32_off():
+    """cuDNN's TF32 off for the convolutions inside."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _reflect_pad_1d(img: torch.Tensor, half: int, axis: int) -> torch.Tensor:
+    """Reflect-101 padding by a static index gather (any pad size, also
+    one larger than the axis, which ``F.pad(mode="reflect")`` refuses)."""
+    n = img.shape[axis]
+    idx = reflect101_index(np.arange(-half, n + half), n)
+    return img.index_select(axis, torch.as_tensor(idx, dtype=torch.int64,
+                                                  device=img.device))
+
+
+def blur_conv(img: torch.Tensor, kernel_1d: torch.Tensor) -> torch.Tensor:
+    """Separable reflect-101 blur by convolution, vertical pass first (the
+    reference's order, FilterImpl.cuh:23).  img: [H, W] or [B, H, W]."""
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[None]
+    k = kernel_1d.shape[0]
+    half = k // 2
+    w = torch.as_tensor(kernel_1d, device=img.device).to(img.dtype)
+    conv = torch.nn.functional.conv2d
+    with _cudnn_tf32_off():
+        x = _reflect_pad_1d(img, half, axis=1)
+        x = conv(x[:, None], w.reshape(1, 1, k, 1))[:, 0]
+        x = _reflect_pad_1d(x, half, axis=2)
+        x = conv(x[:, None], w.reshape(1, 1, 1, k))[:, 0]
+    return x[0] if squeeze else x

@@ -21,7 +21,9 @@ unshifted 256-column windows above.
 Everything is static-shape and nothing on the path synchronises with the
 host (no ``.item()``, ``.cpu()``, ``nonzero`` or boolean-mask indexing):
 counts stay on the device, so the frame can later be captured in a CUDA
-graph.  Capacity tiers and graph capture are not ported yet.
+graph (not done yet).  Capacity tiers (``SiftDetector(tiers=...)``) are the
+one exception, as in the JAX package: with tiers on, the detector reads the
+frame's count back to pick the next frame's tier.
 
 float32 matrix products run in full precision: building a detector calls
 ``full_precision_matmul`` (the JAX pyramid runs at ``Precision.HIGHEST``).
@@ -45,8 +47,8 @@ from sift_tpu_torch.ops import orientation as O
 from sift_tpu_torch.ops.flatpyr import (dense_gradients_packed,
                                          dense_gradients_padded, pad_pyramid,
                                          shift_copies, stack_pyramid)
-from sift_tpu_torch.ops.pyramid import (dog_pyramid, gaussian_pyramid,
-                                        plan_operators)
+from sift_tpu_torch.ops.pyramid import (PlanOperators, dog_pyramid,
+                                        gaussian_pyramid, plan_operators)
 from sift_tpu_torch.ops.records import (WalkState, candidates_from_records,
                                         detect_records_pyramid,
                                         finalize_walk,
@@ -91,15 +93,22 @@ def slab_copies(plan: SiftPlan) -> int:
 
 
 def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
-                    kpt_cap: Optional[int] = None, device=None):
+                    kpt_cap: Optional[int] = None, device=None,
+                    ops: Optional[PlanOperators] = None):
     """Returns the function image [H, W] f32 (on ``device``) -> SiftResult.
 
-    ``kpt_cap`` (a capacity tier of the JAX package) is not ported: only
-    ``None`` / ``num_features`` is accepted."""
+    ``kpt_cap`` bounds the INTERNAL keypoint capacity of both compactions
+    and of the orientation and descriptor passes (a capacity tier;
+    default num_features).  Outputs are always padded to num_features, so
+    every tier gives the same shapes; a frame that fills the tier
+    (``max(count, raw_count) == kpt_cap``) may have been truncated and
+    should be run again at full capacity (``SiftDetector`` does).
+    ``ops``: the plan's operators already on ``device`` (else moved)."""
     cfg = plan.config
-    if kpt_cap is not None and int(kpt_cap) != cfg.num_features:
-        raise NotImplementedError("capacity tiers are not ported yet")
-    kcap = cfg.num_features
+    kcap = int(kpt_cap or cfg.num_features)
+    if not 0 < kcap <= cfg.num_features:
+        raise ValueError(f"kpt_cap {kcap} not in [1, num_features="
+                         f"{cfg.num_features}]")
     dev = resolve_device(device)
     impl = resolve_kernel_impl(cfg.kernel_impl, dev)
     full_precision_matmul()
@@ -113,7 +122,8 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
             "256-column window")
     shift = shift_copies if rmax <= FLAT_SHIFTED_MAX_RADIUS \
         else (lambda p: p)
-    ops = plan_operators(plan, dev)      # operators moved to the device once
+    if ops is None:
+        ops = plan_operators(plan, dev)  # operators moved to the device once
     nb = O._NB
     bins = torch.arange(nb, dtype=torch.int32, device=dev)
 
@@ -227,6 +237,13 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
             # octave index shifts down by one.
             kps = kps._replace(x=kps.x * 0.5, y=kps.y * 0.5,
                                size=kps.size * 0.5, octave=kps.octave - 1)
+        if kcap < cfg.num_features:
+            # Pad tiered outputs to the uniform num_features shape.
+            pad = cfg.num_features - kcap
+            padf = lambda a: torch.cat(
+                [a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+            kps = Keypoints(*[padf(f) for f in kps])
+            desc = padf(desc)
         return SiftResult(keypoints=kps, descriptors=desc,
                           count=n_desc, raw_count=n_kp)
 
@@ -244,11 +261,15 @@ class SiftDetector:
     def __init__(self, config: SiftConfig, quant_mode: str = "opencv",
                  device=None, tiers: tuple = (),
                  plan: Optional[SiftPlan] = None):
-        """``tiers`` (capacity tiers of the JAX package) are not ported:
-        only ``()`` is accepted.  ``plan``: a ready plan of this very
+        """``tiers``: optional internal keypoint-capacity tiers (e.g.
+        (1024, 2048)); those below num_features are kept.  Each frame picks
+        the smallest tier with 1.5x headroom over the previous frame's
+        count (full capacity on the first frame) and runs again at full
+        capacity when it fills the tier, so results equal the full
+        detector's; outputs are padded to num_features.  With tiers on,
+        every frame reads its count back to the host (one synchronisation;
+        none without tiers).  ``plan``: a ready plan of this very
         ``config`` (e.g. core/convert.plan_from_numpy), else built here."""
-        if tuple(tiers):
-            raise NotImplementedError("capacity tiers are not ported yet")
         self.config = config
         self.device = resolve_device(device)
         if plan is None:
@@ -256,18 +277,28 @@ class SiftDetector:
         elif plan.config != config:
             raise ValueError("plan was built for another config")
         self.plan = plan
+        ops = plan_operators(plan, self.device)
         self._fn = build_detect_fn(self.plan, quant_mode,
-                                   device=self.device)
+                                   device=self.device, ops=ops)
+        self.tiers = tuple(int(t) for t in sorted(tiers)
+                           if int(t) < config.num_features)
+        self._tier_fns = {t: build_detect_fn(self.plan, quant_mode, t,
+                                             device=self.device, ops=ops)
+                          for t in self.tiers}
+        self._last_count: Optional[int] = None
         self.prev_result: Optional[SiftResult] = None  # frame t-1
         self.last_result: Optional[SiftResult] = None  # frame t
 
     def warm_up(self):
-        """Run one frame so that nothing inside a tracking loop pays for
-        first use (kernel build and load, cuBLAS handles, allocator
-        growth).  Ends with a device synchronisation."""
+        """Run one frame at full capacity and one at every tier, so that
+        nothing inside a tracking loop pays for first use (kernel build and
+        load, cuBLAS handles, allocator growth).  Ends with a device
+        synchronisation."""
         img = torch.zeros((self.config.height, self.config.width),
                           dtype=torch.float32, device=self.device)
         self._fn(img)
+        for fn in self._tier_fns.values():
+            fn(img)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return True
@@ -281,10 +312,39 @@ class SiftDetector:
             raise ValueError(
                 f"image shape {tuple(image.shape)} != configured "
                 f"{(self.config.height, self.config.width)}")
-        result = self._fn(image)
+        tier = self._pick_tier()
+        if tier is None:
+            result = self._fn(image)
+            if self.tiers:
+                # The count steers the next frame's tier (the only host
+                # synchronisation, and only with tiers on).
+                self._last_count = int(result.count)
+        else:
+            result = self._tier_fns[tier](image)
+            # Both compactions (keypoints, then oriented copies) run at the
+            # tier, so a frame that fills either may have been truncated:
+            # run it again at full capacity for the exact result.  One host
+            # read for both counts.
+            count, raw = torch.stack([result.count,
+                                      result.raw_count]).tolist()
+            if max(count, raw) >= tier:
+                result = self._fn(image)
+                count = int(result.count)
+            self._last_count = count
         self.prev_result = self.last_result
         self.last_result = result
         return result
+
+    def _pick_tier(self) -> Optional[int]:
+        """Smallest tier with 1.5x headroom over the previous frame's
+        count; None = full capacity (also for the first frame)."""
+        if self._last_count is None or not self.tiers:
+            return None
+        need = max(64, int(self._last_count * 1.5))
+        for t in self.tiers:
+            if t >= need:
+                return t
+        return None
 
     @property
     def prev_descriptors(self):

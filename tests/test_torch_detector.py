@@ -129,10 +129,11 @@ def test_detector_contract_errors_and_state():
     with pytest.raises(ValueError):             # no silent plain fallback
         stt.SiftDetector(dataclasses.replace(cfg, kernel_impl="cuda"),
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        stt.SiftDetector(cfg, device="cpu", tiers=(32,))
-    with pytest.raises(NotImplementedError):
-        stt.build_detect_fn(stt.build_plan(cfg), kpt_cap=32, device="cpu")
+    assert stt.SiftDetector(cfg, device="cpu", tiers=(32,)).tiers == (32,)
+    for cap in (-1, 65):                        # a tier within the capacity
+        with pytest.raises(ValueError):
+            stt.build_detect_fn(stt.build_plan(cfg), kpt_cap=cap,
+                                device="cpu")
     with pytest.raises(ValueError):             # a plan of another config
         stt.SiftDetector(cfg, device="cpu", plan=stt.build_plan(
             dataclasses.replace(cfg, num_features=32)))

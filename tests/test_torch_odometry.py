@@ -287,9 +287,9 @@ def test_telemetry_stream(sequence, tmp_path):
 
 def test_odometry_entry_point_rules():
     cfg = TConfig(width=W, height=H, num_features=CAP)
-    with pytest.raises(NotImplementedError, match="tiers"):
-        todo.MonocularOdometry(cfg, FX, FX, W / 2, H / 2, tiers=(256,),
-                               device="cpu")
+    odo = todo.MonocularOdometry(cfg, FX, FX, W / 2, H / 2, tiers=(256,),
+                                 device="cpu")
+    assert odo.detector.tiers == (256,)      # handed to the detector
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             todo.MonocularOdometry(cfg, FX, FX, W / 2, H / 2)

@@ -122,9 +122,19 @@ def test_gaussian_pyramid_matches_jax(plans, test_image):
 
 
 def test_conv_blur_is_refused_not_substituted():
+    """blur_impl="conv" runs the conv pyramid (not the matmul one), and a
+    plan without the 1-D kernels it needs is refused, not run as matmul."""
     cfg = stt.SiftConfig(width=64, height=48, blur_impl="conv")
-    with pytest.raises(NotImplementedError):
-        gaussian_pyramid(stt.build_plan(cfg), torch.zeros(48, 64))
+    plan = stt.build_plan(cfg)
+    img = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 255, (48, 64)).astype(np.float32))
+    conv = gaussian_pyramid(plan, img)
+    mat = gaussian_pyramid(stt.build_plan(
+        dataclasses.replace(cfg, blur_impl="matmul")), img)
+    assert not torch.equal(conv[0], mat[0])          # another computation
+    np.testing.assert_allclose(conv[0].numpy(), mat[0].numpy(), atol=2e-2)
+    with pytest.raises(ValueError, match="kernels_1d"):
+        gaussian_pyramid(dataclasses.replace(plan, kernels_1d=()), img)
 
 
 def test_config_fields_track_the_jax_config():
@@ -182,7 +192,9 @@ geometry = ["sift_tpu_torch.geometry." + m for m in
              "odometry")]
 others = ["sift_tpu_torch.io.image", "sift_tpu_torch.io.native",
           "sift_tpu_torch.perf.telemetry", "sift_tpu_torch.tools.odometry",
-          "sift_tpu_torch.tools.reconstruct"]
+          "sift_tpu_torch.tools.reconstruct", "sift_tpu_torch.tools.detect",
+          "sift_tpu_torch.tools.extract_and_match",
+          "sift_tpu_torch.ops.patches"]
 missing = sorted(set(geometry + others) - set(names))
 assert not missing, missing
 bad = [m for m in sys.modules
