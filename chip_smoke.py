@@ -1210,6 +1210,7 @@ TIERS = (1024, 2048)
 FALLBACK_TIER = 64          # the smallest tier _pick_tier can choose
 CLI_ITERS = 5
 LARGE_FRAME = (1200, 1920)  # the JAX docs' second frame size
+LARGE_FEATURES = 5000
 
 
 def stdout_of(fn, *args):
@@ -1233,8 +1234,10 @@ def run_cv2_parity(FD, EX, FS):
     port's detector on the card at tests/test_pipeline.py's config
     (``upscale=True``, ``num_features=2000``), held to that file's four
     gates (``perf/oracle.parity_gates``); each frame launches the four
-    frame kernels once and no plain version.  K2 / K3 are then held
-    against their plain versions at the photo's own inputs."""
+    frame kernels once and no plain version.  Each frame (upscaled, so
+    K1 / K5 run at octave shapes no other phase gives them) is then held
+    against the same frame through the plain versions on the card, and
+    K2 / K3 against their plain versions at the photo's own inputs."""
     from sift_tpu_torch import SiftConfig, SiftDetector
     from sift_tpu_torch.core.convert import result_to_numpy
     from sift_tpu_torch.perf import oracle as OR
@@ -1255,13 +1258,17 @@ def run_cv2_parity(FD, EX, FS):
         counts = frame_launches(FD, EX, FS, 1, f"cv2_parity[{scene}]")
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         gates = OR.parity_gates(result_to_numpy(res), orc[scene])
+        paired, dd, _ = plain_path_pairing(det, f, res,
+                                           f"cv2_parity[{scene}]")
         scenes[scene] = dict(size=[w, h], keypoints=int(res.count),
                              cv2_keypoints=len(orc[scene]["x"]),
-                             launches=counts, **gates)
+                             launches=counts, paired_with_plain_path=paired,
+                             max_descriptor_diff_vs_plain=dd, **gates)
         if not gates["ok"]:
             bad.append(scene)
         if scene == "photo":
             photo = (det, f)
+    zero_counters(FD, EX, FS)
     _, ori, desc = tap_stage_inputs(*photo)
     k2 = check_orientation(ori, "cv2_photo")
     k3 = check_descriptor(desc, "cv2_photo")
@@ -1385,15 +1392,49 @@ def run_tiers(det, f1, FD, EX, FS):
     return k2, k3, counts
 
 
+def frame_device_profile(fn, calls=5):
+    """Per call of ``fn``, from torch.profiler after two warm-up calls:
+    the device's busy ms, its kernels and copies, the host-to-device
+    copies among them, the eight rows that take the most device time
+    (name, ms, count) and the eight host operators that take the most
+    host time of their own (name, ms, count; the profiler's own overhead
+    included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sift_tpu_torch.perf.profile import device_rows
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof, calls)
+    host = sorted(((e.key, e.self_cpu_time_total / calls / 1e3,
+                    e.count / calls) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in rows),
+            "device_ops": sum(r[2] for r in rows),
+            "htod_copies": sum(r[2] for r in rows if "HtoD" in r[0]),
+            "top": [[k[:90], ms, n] for k, ms, n in rows[:8]],
+            "host_top": [[k[:60], ms, n] for k, ms, n in host[:8]]}
+
+
 def run_conv_pyramid(det, f1, r_matmul, FD, EX, FS):
     """``blur_impl="conv"`` on the card: its pyramid against the matmul
     pyramid (atol 2e-2 on octaves 0-2, tests/test_pyramid.py:72-81) and
     against the conv pyramid on the CPU (atol 2e-4) — computed with
     cuDNN's TF32 switched ON for the process, which the conv blur must
-    turn off for its own calls — then one whole conv-mode frame."""
+    turn off for its own calls — then one whole conv-mode frame, profiled
+    beside the matmul frame (it may copy no more to the device) and beside
+    the conv frame that builds its pad indices on every blur."""
     import dataclasses
 
-    from sift_tpu_torch import SiftDetector, build_plan
+    from sift_tpu_torch import SiftDetector, build_detect_fn, build_plan
     from sift_tpu_torch.core.convert import result_to_numpy
     from sift_tpu_torch.ops.pyramid import gaussian_pyramid, plan_operators
     from sift_tpu_torch.perf.compare import pair_keypoints
@@ -1402,7 +1443,8 @@ def run_conv_pyramid(det, f1, r_matmul, FD, EX, FS):
                               downsample="nearest")
     plan = build_plan(cfg)
     ops = plan_operators(plan, f1.device)
-    pm = gaussian_pyramid(det.plan, f1, plan_operators(det.plan, f1.device))
+    pm_ops = plan_operators(det.plan, f1.device)
+    pm = gaussian_pyramid(det.plan, f1, pm_ops)
     torch.backends.cudnn.allow_tf32 = True
     try:
         pc = gaussian_pyramid(plan, f1, ops)
@@ -1415,6 +1457,10 @@ def run_conv_pyramid(det, f1, r_matmul, FD, EX, FS):
     err_cpu = [float((a.cpu() - b).abs().max()) for a, b in zip(pc, pcpu)]
     dc = SiftDetector(cfg)
     dc.warm_up()
+    # The conv frame as it was before plan_operators held the pad indices:
+    # blur_conv builds and copies both indices to the card on every call.
+    per_call = build_detect_fn(dc.plan, device=dc.device,
+                               ops=ops._replace(pad_index=None))
     zero_counters(FD, EX, FS)
     rc = dc.detect_and_compute(f1)
     torch.cuda.synchronize()
@@ -1435,7 +1481,14 @@ def run_conv_pyramid(det, f1, r_matmul, FD, EX, FS):
             "pyramid_ms_conv": time_ms(lambda: gaussian_pyramid(plan, f1,
                                                                 ops)),
             "pyramid_ms_matmul": time_ms(lambda: gaussian_pyramid(
-                det.plan, f1, plan_operators(det.plan, f1.device)))}
+                det.plan, f1, pm_ops)),
+            "frame_ms_conv_index_per_call": time_ms(lambda: per_call(f1)),
+            "profile_conv": frame_device_profile(
+                lambda: dc.detect_and_compute(f1)),
+            "profile_conv_index_per_call": frame_device_profile(
+                lambda: per_call(f1)),
+            "profile_matmul": frame_device_profile(
+                lambda: det.detect_and_compute(f1))}
     say(line)
     if max(err_mm) > 2e-2 or max(err_cpu) > 2e-4 or not restored:
         fail(f"conv_pyramid: errors {err_mm} / {max(err_cpu)}, TF32 "
@@ -1443,6 +1496,11 @@ def run_conv_pyramid(det, f1, r_matmul, FD, EX, FS):
     if int(rc.count) <= 300 or paired < 0.99:
         fail(f"conv_pyramid: {int(rc.count)} keypoints, {paired:.2%} "
              "paired with the matmul frame")
+    copies = [line[k]["htod_copies"] for k in ("profile_conv",
+                                               "profile_matmul")]
+    if copies[0] > copies[1]:
+        fail(f"conv_pyramid: {copies[0]} host-to-device copies a conv "
+             f"frame, {copies[1]} a matmul frame")
     return line
 
 
@@ -1451,9 +1509,12 @@ def run_detect_cli(det, img1, FD, EX, FS, WG):
     loader): its keypoint count equals the detector's on the same frame,
     and the golden it captures with --debug-path passes all seven stages
     of tools/perf.py, K4 launched per_pass times in each.  Then the CLI on
-    a 1920x1200 frame, timed."""
+    a 1920x1200 frame, timed, its count equal to the detector's, and that
+    frame (new octave and slab shapes for K1 / K5 / K2 / K3) held against
+    the same frame through the plain versions on the card."""
     import re
 
+    from sift_tpu_torch import SiftConfig, SiftDetector
     from sift_tpu_torch.io.image import load_grayscale
     from sift_tpu_torch.perf.benchimg import bench_image
     from sift_tpu_torch.perf.scenes import write_pgm
@@ -1483,10 +1544,20 @@ def run_detect_cli(det, img1, FD, EX, FS, WG):
         write_pgm(large, bench_image(*LARGE_FRAME, seed=0))
         zero_counters(FD, EX, FS)
         big, _, _ = stdout_of(detect.main, [large, "--iters", str(CLI_ITERS),
-                                            "--num-features", "5000"])
+                                            "--num-features",
+                                            str(LARGE_FEATURES)])
         torch.cuda.synchronize()
         big_launches = frame_launches(FD, EX, FS, 1 + CLI_ITERS,
                                       "detect_cli[1920x1200]")
+        big_img = load_grayscale(large)
+        det_big = SiftDetector(SiftConfig(
+            width=big_img.shape[1], height=big_img.shape[0],
+            num_features=LARGE_FEATURES))
+        big_img = torch.as_tensor(big_img, device=det_big.device)
+        r_big = det_big.detect_and_compute(big_img)
+        big_plain = plain_path_pairing(det_big, big_img, r_big,
+                                       "detect_cli[1920x1200]")[:2]
+        zero_counters(FD, EX, FS)
     num = lambda pat, text: float(re.search(pat, text).group(1))
     n = int(num(r"keypoints: (\d+)", out))
     n_big = int(num(r"keypoints: (\d+)", big))
@@ -1502,6 +1573,9 @@ def run_detect_cli(det, img1, FD, EX, FS, WG):
                                         "expected_each": per_pass},
             "plain_calls": plain,
             "large": {"size": list(LARGE_FRAME[::-1]), "keypoints": n_big,
+                      "keypoints_detector": int(r_big.count),
+                      "paired_with_plain_path": big_plain[0],
+                      "max_descriptor_diff_vs_plain": big_plain[1],
                       "median_ms": num(r"median ([0-9.]+) ms", big),
                       "min_ms": num(r"min ([0-9.]+) ms", big),
                       "launches": big_launches},
@@ -1514,8 +1588,9 @@ def run_detect_cli(det, img1, FD, EX, FS, WG):
     if n_capture != per_pass or n_replay != per_pass or plain:
         fail(f"detect_cli: gather_windows launched {n_capture} + "
              f"{n_replay} (expected {per_pass} each), plain {plain}")
-    if n_big <= 300:
-        fail(f"detect_cli: {n_big} keypoints at 1920x1200")
+    if n_big <= 300 or n_big != int(r_big.count):
+        fail(f"detect_cli: {n_big} keypoints at 1920x1200 (detector "
+             f"{int(r_big.count)})")
     return n_capture + n_replay, frames, big_launches
 
 
@@ -1523,9 +1598,9 @@ def run_extract_and_match_cli(frames, FD, EX, FS):
     """tools/extract_and_match.py --tiers on the textured VO frames as a
     PGM directory: one line per frame, matches to the previous frame on
     every frame after the first, each count equal to a library run of the
-    same frames (a full-capacity SiftDetector + match_brute_force), and the
-    frame kernels launched as often as by the library's tiered detector
-    (its warm-up, then once per frame, twice where a tier saturates)."""
+    same frames (a tiered SiftDetector + match_brute_force), and the frame
+    kernels launched as often as by that detector (its warm-up, then once
+    per frame, twice where a tier saturates)."""
     import re
 
     from sift_tpu_torch import SiftConfig, SiftDetector, match_brute_force
@@ -1552,26 +1627,22 @@ def run_extract_and_match_cli(frames, FD, EX, FS):
                     r"prev)? \(([0-9.]+) ms\)", ln) for ln in lines]
     h, w = imgs[0].shape
     cfg = SiftConfig(width=w, height=h, num_features=VO_FEATURES)
-    lib = SiftDetector(cfg)
-    lib_tiered = SiftDetector(cfg, tiers=tiers)
+    lib = SiftDetector(cfg, tiers=tiers)
     zero_counters(FD, EX, FS)
-    lib_tiered.warm_up()
-    picked, per_frame = [], []
+    lib.warm_up()
+    picked, per_frame, kpts, matched, prev = [], [], [], [], None
     for img in imgs:
-        picked.append(lib_tiered._pick_tier())
+        picked.append(lib._pick_tier())
         before = FS.launches["descriptor_hist"]
-        lib_tiered.detect_and_compute(img)
-        per_frame.append(FS.launches["descriptor_hist"] - before)
-    torch.cuda.synchronize()
-    lib_counts = {**FD.launches, **EX.launches, **FS.launches}
-    kpts, matched, prev = [], [], None
-    for img in imgs:
         res = lib.detect_and_compute(img)
+        per_frame.append(FS.launches["descriptor_hist"] - before)
         kpts.append(int(res.count))
         matched.append(None if prev is None else int((match_brute_force(
             res.descriptors, prev.descriptors, res.keypoints.valid,
             prev.keypoints.valid) >= 0).sum()))
         prev = res
+    torch.cuda.synchronize()
+    lib_counts = {**FD.launches, **EX.launches, **FS.launches}
     cli_kpts = [int(g.group(2)) for g in got if g]
     cli_matched = [int(g.group(3)) if g and g.group(3) else None
                    for g in got]

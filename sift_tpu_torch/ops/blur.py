@@ -18,6 +18,7 @@ Counterpart of ``sift_tpu/ops/blur.py``, two implementations:
 from __future__ import annotations
 
 import contextlib
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,28 +48,37 @@ def _cudnn_tf32_off():
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def _reflect_pad_1d(img: torch.Tensor, half: int, axis: int) -> torch.Tensor:
-    """Reflect-101 padding by a static index gather (any pad size, also
-    one larger than the axis, which ``F.pad(mode="reflect")`` refuses)."""
-    n = img.shape[axis]
-    idx = reflect101_index(np.arange(-half, n + half), n)
-    return img.index_select(axis, torch.as_tensor(idx, dtype=torch.int64,
-                                                  device=img.device))
+def reflect_pad_index(length: int, half: int, device=None) -> torch.Tensor:
+    """The source index of each of the ``length + 2 * half`` rows of a
+    reflect-101 padded axis (any pad size, also one larger than the axis,
+    which ``F.pad(mode="reflect")`` refuses)."""
+    idx = reflect101_index(np.arange(-half, length + half), length)
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
 
 
-def blur_conv(img: torch.Tensor, kernel_1d: torch.Tensor) -> torch.Tensor:
+def blur_conv(img: torch.Tensor, kernel_1d: torch.Tensor,
+              pad_index: Optional[Mapping] = None) -> torch.Tensor:
     """Separable reflect-101 blur by convolution, vertical pass first (the
-    reference's order, FilterImpl.cuh:23).  img: [H, W] or [B, H, W]."""
+    reference's order, FilterImpl.cuh:23).  img: [H, W] or [B, H, W].
+
+    ``pad_index``: ``{(length, half): reflect_pad_index(length, half)}``
+    already on the image's device (``ops/pyramid.plan_operators`` builds it
+    for the conv pyramid); without it both indices are built here and
+    copied to the device on every call."""
     squeeze = img.dim() == 2
     if squeeze:
         img = img[None]
     k = kernel_1d.shape[0]
     half = k // 2
+    h, w_len = img.shape[1:]
+    if pad_index is None:
+        pad_index = {(n, half): reflect_pad_index(n, half, img.device)
+                     for n in (h, w_len)}
     w = torch.as_tensor(kernel_1d, device=img.device).to(img.dtype)
     conv = torch.nn.functional.conv2d
     with _cudnn_tf32_off():
-        x = _reflect_pad_1d(img, half, axis=1)
+        x = img.index_select(1, pad_index[(h, half)])
         x = conv(x[:, None], w.reshape(1, 1, k, 1))[:, 0]
-        x = _reflect_pad_1d(x, half, axis=2)
+        x = x.index_select(2, pad_index[(w_len, half)])
         x = conv(x[:, None], w.reshape(1, 1, 1, k))[:, 0]
     return x[0] if squeeze else x

@@ -13,12 +13,12 @@ TPU layout and has no counterpart here.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from sift_tpu_torch.core.types import SiftPlan
-from sift_tpu_torch.ops.blur import blur_conv, blur_matmul
+from sift_tpu_torch.ops.blur import blur_conv, blur_matmul, reflect_pad_index
 from sift_tpu_torch.ops.resize import resize_matmul
 
 
@@ -33,12 +33,15 @@ class PlanOperators(NamedTuple):
     init_h: torch.Tensor
     up_v: Optional[torch.Tensor]
     up_h: Optional[torch.Tensor]
-    # The conv pyramid's 1-D kernels and octave-base resize operators
-    # (moved only for blur_impl="conv").
+    # The conv pyramid's 1-D kernels, octave-base resize operators and
+    # reflect-101 pad indices by (axis length, kernel half-width) (moved
+    # only for blur_impl="conv", so that a frame copies nothing to the
+    # device).
     kernels_1d: Tuple[torch.Tensor, ...] = ()
     init_kernel_1d: Optional[torch.Tensor] = None
     down_v: Tuple[torch.Tensor, ...] = ()
     down_h: Tuple[torch.Tensor, ...] = ()
+    pad_index: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def plan_operators(plan: SiftPlan, device) -> PlanOperators:
@@ -47,9 +50,14 @@ def plan_operators(plan: SiftPlan, device) -> PlanOperators:
     conv = {}
     if plan.config.blur_impl == "conv":
         _check_conv_plan(plan)
+        halves = {k.shape[0] // 2
+                  for k in (plan.init_kernel_1d, *plan.kernels_1d)}
+        lengths = {n for oc in plan.octaves for n in (oc.height, oc.width)}
         conv = dict(kernels_1d=tt(plan.kernels_1d),
                     init_kernel_1d=t(plan.init_kernel_1d),
-                    down_v=tt(plan.down_v), down_h=tt(plan.down_h))
+                    down_v=tt(plan.down_v), down_h=tt(plan.down_h),
+                    pad_index={(n, h): reflect_pad_index(n, h, device)
+                               for n in lengths for h in halves})
     return PlanOperators(blur_v=tt(plan.blur_v), blur_h=tt(plan.blur_h),
                          carry_v=tt(plan.carry_v), carry_h=tt(plan.carry_h),
                          init_v=t(plan.init_v), init_h=t(plan.init_h),
@@ -100,7 +108,7 @@ def _gaussian_pyramid_conv(plan: SiftPlan, base: torch.Tensor,
     (Detector.cu:292-303): layer i = blur(layer i-1, kernels_1d[i]);
     octave base = resize of the previous octave's layer L."""
     cfg = plan.config
-    layer0 = blur_conv(base, ops.init_kernel_1d)
+    layer0 = blur_conv(base, ops.init_kernel_1d, ops.pad_index)
     octaves = []
     for o in range(cfg.num_octaves):
         if o > 0:
@@ -108,7 +116,8 @@ def _gaussian_pyramid_conv(plan: SiftPlan, base: torch.Tensor,
             layer0 = resize_matmul(prev, ops.down_v[o], ops.down_h[o])
         layers = [layer0]
         for i in range(1, cfg.num_gauss_layers):
-            layers.append(blur_conv(layers[-1], ops.kernels_1d[i]))
+            layers.append(blur_conv(layers[-1], ops.kernels_1d[i],
+                                     ops.pad_index))
         octaves.append(torch.stack(layers))
     return octaves
 

@@ -19,6 +19,16 @@ from sift_tpu_torch.tools import detect, extract_and_match
 from sift_tpu_torch.tools import perf as perf_cli
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The frames here are small: one intra-op thread keeps this file off the cores of the
+    suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
     """Three 160x120 PGM frames: the disc scene under small affine warps."""

@@ -28,6 +28,16 @@ from sift_tpu_torch.ops import pyramid as TPY
 from sift_tpu_torch.ops import resize as TR
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The images here are small: one intra-op thread keeps this file off the cores of the
+    suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("shape,sigma", [
     ((48, 64), 1.6),
     ((3, 40, 56), 2.5),
@@ -96,6 +106,28 @@ def test_conv_plan_without_kernels_raises(test_image):
         TPY.gaussian_pyramid(plan, torch.from_numpy(test_image))
     with pytest.raises(ValueError, match="kernels_1d"):
         stt.SiftDetector(plan.config, device="cpu", plan=plan)
+
+
+@pytest.mark.parametrize("upscale", [False, True])
+def test_conv_pyramid_builds_no_pad_index_per_frame(upscale, monkeypatch):
+    """plan_operators moves every reflect-101 pad index the conv pyramid
+    uses to the device once; a frame builds (and so copies) none."""
+    cfg = stt.SiftConfig(width=64, height=48, blur_impl="conv",
+                         upscale=upscale)
+    plan = stt.build_plan(cfg)
+    ops = TPY.plan_operators(plan, "cpu")
+    img = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 255, (48, 64)).astype(np.float32))
+    want = TPY.gaussian_pyramid(plan, img, ops)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a pad index was built during the frame")
+
+    monkeypatch.setattr(TB, "reflect_pad_index", refuse)
+    got = TPY.gaussian_pyramid(plan, img, ops)
+    assert len(got) == cfg.num_octaves
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,out", [

@@ -45,6 +45,16 @@ def scene_images():
             "photo": photo.astype(np.float32).astype(np.uint8)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The frames here are small: one intra-op thread keeps this file off the cores of the
+    suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def oracle():
     return TOR.load_parity_oracle(ORACLE_PATH)

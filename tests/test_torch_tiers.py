@@ -17,6 +17,16 @@ from sift_tpu_torch.core.convert import result_to_numpy
 from test_torch_detector import _hold
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The frames here are small: one intra-op thread keeps this file off the cores of the
+    suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def detectors(test_image):
     h, w = test_image.shape
@@ -26,16 +36,23 @@ def detectors(test_image):
             test_image)
 
 
+@pytest.fixture(scope="module")
+def full_result(detectors):
+    """The full-capacity detector's result on the test image."""
+    full, _, img = detectors
+    return full.detect_and_compute(img)
+
+
 def _np_result(res):
     n = int(res.count)
     return n, {f: getattr(res.keypoints, f).numpy()
                for f in res.keypoints._fields}, res.descriptors.numpy()
 
 
-def test_tier_matches_full(detectors):
-    full, tiered, img = detectors
+def test_tier_matches_full(detectors, full_result):
+    _, tiered, img = detectors
     # frame 1 runs full (no prior count); frame 2 picks a tier
-    r_full = full.detect_and_compute(img)
+    r_full = full_result
     tiered.detect_and_compute(img)
     assert tiered._pick_tier() == 256
     r_tier = tiered.detect_and_compute(img)
@@ -63,16 +80,16 @@ def test_tier_selection_logic(detectors):
     assert tiered._pick_tier() is None  # first frame -> full
 
 
-def test_saturation_falls_back_to_full(test_image, monkeypatch):
+def test_saturation_falls_back_to_full(detectors, full_result,
+                                      monkeypatch):
     """A tier too small for the frame must trigger the exact re-run.
     tests/test_tiers.py forces a tier of 16, which _pick_tier never picks
     (it needs at least 64 rows) — so here the tier is 64, and the tiered
     function is seen to run before the full one."""
-    h, w = test_image.shape
-    cfg = stt.SiftConfig(width=w, height=h, num_features=1000)
-    det = stt.SiftDetector(cfg, device="cpu", tiers=(64, 5000))
+    full, _, test_image = detectors
+    det = stt.SiftDetector(full.config, device="cpu", tiers=(64, 5000))
     assert det.tiers == (64,)                  # tiers >= capacity dropped
-    r1 = det.detect_and_compute(test_image)   # full (first frame)
+    r1 = full_result                           # the full-capacity result
     n_true = int(r1.count)
     assert n_true > 64
     det._last_count = 5                        # force the tiny tier
