@@ -17,14 +17,20 @@ detector's remaining configurations and CLIs: OpenCV parity at
 ``upscale=True`` on the committed cv2 oracle's three scenes, capacity
 tiers, the conv pyramid (``blur_impl="conv"``), ``tools/detect.py`` with
 its golden replayed by ``tools/perf.py``, and ``tools/extract_and_match.py
---tiers``.  Every hand-written CUDA kernel is held against its plain
-PyTorch version on the card, at the shapes its path gives it, and each
-path's launch counters are set to 0 just before it runs and read just
-after.  Phases (one JSON line each): ``device``, ``build``, ``main_path``,
-``matcher_exact``, ``replay``, ``flat_frame``, ``window_proto``, ``vo``,
-``vo_capacity``, ``vo_resume``, ``loop_closure``, ``reconstruct``,
-``odometry_cli``, ``ba_float64``, ``cv2_parity``, ``tiers``,
-``conv_pyramid``, ``detect_cli``, ``extract_and_match_cli``, then the
+--tiers``, and the multi-device layer: the keyframe-sharded pipeline
+over four virtual shards of the one card, ``tools/scale_bench.py``,
+distributed bundle adjustment, ``reconstruct --distributed``, and worker
+processes sharing the card against one process (with the elastic
+kill-and-resume).  Every hand-written CUDA kernel is held against its
+plain PyTorch version on the card, at the shapes its path gives it, and
+each path's launch counters are set to 0 just before it runs and read
+just after.  Phases (one JSON line each): ``device``, ``build``,
+``main_path``, ``matcher_exact``, ``replay``, ``flat_frame``,
+``window_proto``, ``vo``, ``vo_capacity``, ``vo_resume``,
+``loop_closure``, ``reconstruct``, ``odometry_cli``, ``ba_float64``,
+``cv2_parity``, ``tiers``, ``conv_pyramid``, ``detect_cli``,
+``extract_and_match_cli``, ``sharded``, ``scale_bench``,
+``distributed_ba``, ``reconstruct_distributed``, ``multihost``, then the
 ``kernels`` line; any failure exits non-zero.
 Needs one CUDA device, ``nvcc``, a C++ compiler (the native PGM loader)
 and the checkout's ``tests/data/cv2_parity_oracle.npz``; imports
@@ -1027,8 +1033,11 @@ def run_loop_closure(FD, EX, FS, width, height):
     return line
 
 
-def run_reconstruct(FD, EX, FS, width, height):
-    """tools/reconstruct.py on three rendered frames written as PGM."""
+def run_reconstruct(FD, EX, FS, width, height, distributed=False):
+    """tools/reconstruct.py on three rendered frames written as PGM
+    (``distributed``: with ``--distributed``, phase
+    ``reconstruct_distributed``).  Returns the phase line and the CLI's
+    final BAState."""
     import contextlib
     import io
     import re
@@ -1036,6 +1045,7 @@ def run_reconstruct(FD, EX, FS, width, height):
     from sift_tpu_torch.perf import scenes as S
     from sift_tpu_torch.tools import reconstruct
 
+    phase = "reconstruct_distributed" if distributed else "reconstruct"
     frames, _, _ = S.render_sequence(n_frames=3, n_pts=220, width=width,
                                      height=height)
     fx = 0.9 * width
@@ -1048,27 +1058,30 @@ def run_reconstruct(FD, EX, FS, width, height):
         zero_counters(FD, EX, FS)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            reconstruct.main(files + ["--fx", str(fx), "--num-features",
-                                      str(S.VO_FEATURES)])
+            state = reconstruct.main(
+                files + ["--fx", str(fx), "--num-features",
+                         str(S.VO_FEATURES)]
+                + (["--distributed"] if distributed else []))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counts = frame_launches(FD, EX, FS, len(frames), "reconstruct")
+    counts = frame_launches(FD, EX, FS, len(frames), phase)
     out = buf.getvalue()
     m = re.search(r"mean sq reproj ([0-9.]+) -> ([0-9.]+) px\^2 over "
                   r"(\d+) observations, (\d+) points", out)
     if not m:
-        fail(f"reconstruct: no cost line in\n{out}")
+        fail(f"{phase}: no cost line in\n{out}")
     c0, c1 = float(m.group(1)), float(m.group(2))
     n_obs, n_pts = int(m.group(3)), int(m.group(4))
-    line = {"phase": "reconstruct", "frames": len(frames), "c0": c0,
-            "c1": c1, "observations": n_obs, "points": n_pts,
-            "launches": counts, "seconds": wall,
+    line = {"phase": phase, "frames": len(frames), "c0": c0,
+            "c1": c1, "cost": float(state.cost), "observations": n_obs,
+            "points": n_pts, "launches": counts, "seconds": wall,
             "output": out.strip().splitlines()}
-    say(line)
+    if not distributed:
+        say(line)
     if not (c1 <= c0 and c1 < 1.0 and n_pts > 50 and n_obs >= 2 * n_pts):
-        fail(f"reconstruct: cost {c0} -> {c1}, {n_obs} observations, "
+        fail(f"{phase}: cost {c0} -> {c1}, {n_obs} observations, "
              f"{n_pts} points")
-    return line
+    return line, state
 
 
 def run_odometry_cli(FD, EX, FS, frames, gt_poses):
@@ -1185,7 +1198,8 @@ def run_slice(FD, EX, FS, width, height):
     to 0 just before it: vo (then the frame kernels at its shapes),
     vo_resume, loop_closure, reconstruct, odometry_cli, ba_float64.
     Returns the frame kernels' launches on the vo run, the K2 / K3
-    entries of the vo frame and the rendered frames."""
+    entries of the vo frame, the rendered frames and the reconstruct
+    phase's line and final BAState."""
     from sift_tpu_torch.perf.scenes import VO_FRAMES, render_sequence
 
     frames, gt, gt_poses = render_sequence(n_frames=VO_FRAMES, textured=True,
@@ -1193,10 +1207,10 @@ def run_slice(FD, EX, FS, width, height):
     odo, vo, capacity = run_vo(FD, EX, FS, frames, gt)
     run_vo_resume(FD, EX, FS, frames, odo)
     run_loop_closure(FD, EX, FS, width, height)
-    run_reconstruct(FD, EX, FS, width, height)
+    recon = run_reconstruct(FD, EX, FS, width, height)
     run_odometry_cli(FD, EX, FS, frames, gt_poses)
     check_ba_float64()
-    return vo["launches"], capacity, frames
+    return vo["launches"], capacity, frames, recon
 
 
 # ---------------------------------------------------------------------------
@@ -1685,6 +1699,400 @@ def run_detector_slice(det, f1, r1, img1, frames, FD, EX, FS, WG):
 
 
 # ---------------------------------------------------------------------------
+# The multi-device layer: parallel/, tools/scale_bench.py, reconstruct
+# --distributed.  One card: several shards on it are virtual (they share
+# its streams), so no figure here is a scaling figure.
+# ---------------------------------------------------------------------------
+
+SHARDED_FRAMES = 8
+VIRTUAL_SHARDS = 4
+MULTIHOST_FEATURES = 512    # tests/multihost_worker.py's config
+CLUSTER_TIMEOUT = 300       # seconds, for each cluster of worker processes
+CHAIN_CAMERAS = 2000        # tests/test_dba.py's map-block chain
+
+
+def virtual_mesh(n):
+    from sift_tpu_torch.parallel.batched import Mesh
+    return Mesh(devices=(torch.device("cuda", 0),) * n)
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def host_syncs(fn):
+    """``fn()`` with CUDA's sync debug mode on "warn": returns its result
+    and how many synchronising torch calls it made (reading a device value
+    on the host, a blocking copy)."""
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def run_sharded(FD, EX, FS, smi):
+    """make_sharded_pipeline at the flagship config on 8 textured frames
+    over 4 virtual shards of cuda:0, against batched_detect_fn +
+    sequential_match on the one device: every field bit for bit."""
+    from sift_tpu_torch import SiftConfig, build_plan
+    from sift_tpu_torch.parallel.batched import (batched_detect_fn,
+                                                 make_mesh,
+                                                 make_sharded_pipeline,
+                                                 sequential_match)
+    from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES,
+                                              FLAGSHIP_HEIGHT,
+                                              FLAGSHIP_WIDTH, bench_image)
+
+    cfg = SiftConfig(width=FLAGSHIP_WIDTH, height=FLAGSHIP_HEIGHT,
+                     num_features=FLAGSHIP_FEATURES)
+    plan = build_plan(cfg)
+    frames = np.stack([bench_image(cfg.height, cfg.width, seed=i)
+                       for i in range(SHARDED_FRAMES)])
+    dev = make_mesh(1).devices[0]
+    batched = batched_detect_fn(plan, device=dev)
+    ref = batched(torch.as_tensor(frames, device=dev))
+    ref_m = sequential_match(ref.descriptors, ref.keypoints.valid,
+                             cfg.match_ratio)
+    fn, shard = make_sharded_pipeline(plan, virtual_mesh(VIRTUAL_SHARDS))
+    blocks = shard(frames)
+    torch.cuda.synchronize()
+    zero_counters(FD, EX, FS)
+    out, syncs = host_syncs(lambda: fn(blocks))
+    torch.cuda.synchronize()
+    counts = frame_launches(FD, EX, FS, SHARDED_FRAMES, "sharded")
+    res, m = out.gather()
+    equal = {"keypoints": same_bits(res.keypoints, ref.keypoints),
+             "descriptors": torch.equal(res.descriptors, ref.descriptors),
+             "count": torch.equal(res.count, ref.count),
+             "matches": torch.equal(m, ref_m)}
+
+    def fps(call, reps=3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+            torch.cuda.synchronize()
+        return SHARDED_FRAMES * reps / (time.perf_counter() - t0)
+
+    line = {"phase": "sharded", "width": cfg.width, "height": cfg.height,
+            "num_features": cfg.num_features, "frames": SHARDED_FRAMES,
+            "mesh": f"{VIRTUAL_SHARDS} virtual shards of cuda:0",
+            "keypoints": res.count.tolist(),
+            "matched": (m >= 0).sum(1).tolist(),
+            "bit_equal_to_one_device": equal,
+            "row0_unmatched": bool((m[0] == -1).all()), "launches": counts,
+            "host_syncs": syncs,
+            "frames_per_s_virtual_shards_one_card": fps(lambda: fn(blocks)),
+            "frames_per_s_one_device_batch": fps(
+                lambda: batched(torch.as_tensor(frames, device=dev))),
+            "card": smi}
+    say(line)
+    if not all(equal.values()) or not line["row0_unmatched"] \
+            or min(line["keypoints"]) < 300:
+        fail(f"sharded: {line}")
+    return counts
+
+
+def run_scale_bench(FD, EX, FS, smi):
+    """tools/scale_bench.py with its defaults (752x480, 512 features, 2
+    frames per device, 4 timed iterations after one warm-up): one row on
+    a one-GPU machine."""
+    import contextlib
+    import io
+
+    from sift_tpu_torch.tools import scale_bench
+
+    buf = io.StringIO()
+    zero_counters(FD, EX, FS)
+    with contextlib.redirect_stdout(buf):
+        rows = scale_bench.main([])
+    torch.cuda.synchronize()
+    n = torch.cuda.device_count()
+    points = sorted({1, 2, 4, 8, n} & set(range(1, n + 1)))
+    # 2 frames per device, one warm-up call and 4 timed ones per point
+    counts = frame_launches(FD, EX, FS, sum(2 * k * 5 for k in points),
+                            "scale_bench")
+    line = {"phase": "scale_bench", "rows": rows, "launches": counts,
+            "output": buf.getvalue().strip().splitlines(), "card": smi}
+    say(line)
+    if [r["devices"] for r in rows] != points \
+            or rows[0]["efficiency_vs_1"] != 1.0 \
+            or not all(r["frames_per_s"] > 0 for r in rows):
+        fail(f"scale_bench: {rows}")
+    return counts
+
+
+def run_distributed_ba(FD, EX, FS, smi):
+    """parallel/dba.py on virtual shards of cuda:0 (tests/test_dba.py's
+    cases and gates): dense 5 cameras / 96 points over 4 shards against
+    lm_optimize; 148 observations over 8 shards; the 2000-camera chain
+    with solver="cg" over 1 and 4 shards; the chunked resume through
+    save_ba_state / load_ba_state, bit for bit."""
+    from sift_tpu_torch.geometry import ba
+    from sift_tpu_torch.parallel.dba import (make_distributed_lm,
+                                             make_lm_stepper)
+    from sift_tpu_torch.perf.checkpoint import load_ba_state, save_ba_state
+    from sift_tpu_torch.perf.scenes import synthetic_ba, synthetic_ba_chain
+
+    dev = torch.device("cuda", 0)
+    zero_counters(FD, EX, FS)
+    line = {"phase": "distributed_ba", "mesh": "virtual shards of cuda:0"}
+    prob, *_ = synthetic_ba(seed=0, n_cams=5, n_pts=96, device=dev)
+    single = ba.lm_optimize(prob, iterations=10)
+    fn, place = make_distributed_lm(virtual_mesh(4), iterations=10)
+    dist = fn(place(prob))
+    line["dense_4_shards"] = {
+        "cost": float(dist.cost), "cost_single": float(single.cost),
+        "rot_err": float((dist.rotations - single.rotations).abs().max())}
+    ok = (line["dense_4_shards"]["cost"] < 1e-4
+          and math.isclose(float(dist.cost), float(single.cost),
+                           rel_tol=1e-2, abs_tol=1e-6)
+          and line["dense_4_shards"]["rot_err"] <= 1e-4)
+
+    prob, *_ = synthetic_ba(seed=1, n_cams=4, n_pts=37, device=dev)
+    fn, place = make_distributed_lm(virtual_mesh(8), iterations=8)
+    line["nondivisible_148_obs_8_shards"] = {"cost": float(fn(place(prob))
+                                                          .cost)}
+    ok &= line["nondivisible_148_obs_8_shards"]["cost"] < 1e-4
+
+    chain = synthetic_ba_chain(n_cams=CHAIN_CAMERAS, device=dev)
+    c0 = float(ba._mean_cost(chain, chain.rotations, chain.translations,
+                             chain.points))
+    line["chain"] = {"cameras": CHAIN_CAMERAS,
+                     "points": int(chain.points.shape[0]),
+                     "observations": int(chain.cam_idx.shape[0]),
+                     "solver": "cg", "cg_iters": 30, "iterations": 6,
+                     "c0": c0}
+    for n in (1, 4):
+        fn, place = make_distributed_lm(virtual_mesh(n), iterations=6,
+                                        solver="cg", cg_iters=30)
+        t0 = time.perf_counter()
+        placed = place(chain)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):          # the first run pays first-use costs
+            out, ms = events_ms(lambda: fn(placed))
+            runs.append(ms / 6 / 1e3)
+        _, syncs = host_syncs(lambda: fn(placed))
+        line["chain"][f"shards_{n}"] = {
+            "cost": float(out.cost), "place_s": place_s, "host_syncs": syncs,
+            "s_per_lm_iteration": runs[-1],
+            "s_per_lm_iteration_first_run": runs[0]}
+        ok &= float(out.cost) < c0 / 10
+
+    prob, *_ = synthetic_ba(seed=3, n_cams=5, n_pts=96, device=dev)
+    init, step, place = make_lm_stepper(virtual_mesh(4), chunk=5)
+    placed = place(prob)
+    straight = step(placed, step(placed, init(placed)))
+    with tempfile.TemporaryDirectory() as d:
+        save_ba_state(f"{d}/ba.npz", step(placed, init(placed)), 5)
+        loaded, it = load_ba_state(f"{d}/ba.npz")
+    resumed = step(placed, loaded)
+    line["chunked_resume_bit_identical"] = it == 5 and same_bits(straight,
+                                                                 resumed)
+    ok &= line["chunked_resume_bit_identical"]
+    counts = {**FD.launches, **EX.launches, **FS.launches}
+    line["launches"] = counts
+    line["card"] = smi
+    say(line)
+    if not ok or any(counts.values()):
+        fail(f"distributed_ba: {line}")
+
+
+def run_reconstruct_distributed(FD, EX, FS, width, height, single, smi):
+    """reconstruct --distributed on the reconstruct phase's frames: one
+    shard per GPU; the final cost equal to the single-device run's."""
+    line, state = run_reconstruct(FD, EX, FS, width, height,
+                                  distributed=True)
+    ref_line, ref = single
+    line["cost_single_device"] = ref_line["cost"]
+    line["bit_equal_to_single_device"] = same_bits(state, ref)
+    line["shards"] = torch.cuda.device_count()
+    line["card"] = smi
+    say(line)
+    if not math.isclose(line["cost"], ref_line["cost"], rel_tol=1e-5) \
+            or f"distributed over {line['shards']} devices" not in \
+            "\n".join(line["output"]):
+        fail(f"reconstruct_distributed: {line}")
+    return line["launches"]
+
+
+def run_multihost(FD, EX, FS, smi):
+    """Two worker processes on the one card (gloo: NCCL refuses two ranks
+    on one GPU), two cuda:0 shards each, against one process with four:
+    the frame pipeline bit for bit, BA at rtol / atol 1e-5
+    (tests/test_multihost.py's gates); one NCCL process with four shards
+    (the NCCL staging; one rank, so bit for bit); then the elastic run —
+    worker 1 lost after chunk 1, the survivor killed, a fresh pair
+    resuming at iteration 10 — against the uninterrupted schedule."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_multihost_worker import det_frames, finish, spawn
+
+    from sift_tpu_torch import SiftConfig, build_plan
+    from sift_tpu_torch.parallel.batched import make_sharded_pipeline
+    from sift_tpu_torch.parallel.dba import (make_distributed_lm,
+                                             make_lm_stepper)
+    from sift_tpu_torch.perf.benchimg import FLAGSHIP_HEIGHT, FLAGSHIP_WIDTH
+    from sift_tpu_torch.perf.scenes import synthetic_ba
+
+    w, h = FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT
+    size = ["--width", w, "--height", h, "--num-features",
+            MULTIHOST_FEATURES, "--frames", SHARDED_FRAMES,
+            "--device", "cuda:0"]
+    line = {"phase": "multihost", "width": w, "height": h,
+            "num_features": MULTIHOST_FEATURES, "frames": SHARDED_FRAMES}
+
+    def start(d, nproc, shards, backend):
+        return spawn("torch_multihost_worker.py", nproc, f"file://{d}/rv",
+                     d, *size, "--shards", shards, "--backend", backend)
+
+    def collect(d, procs, backend):
+        logs = finish(procs, CLUSTER_TIMEOUT)
+        if any(p.returncode != 0 for p in procs):
+            fail(f"multihost: {backend} workers failed:\n"
+                 + "\n".join(logs)[-6000:])
+        launches = []
+        for pid in range(len(procs)):
+            with open(f"{d}/launches_{pid}.json") as fh:
+                launches.append(json.load(fh))
+        return dict(np.load(f"{d}/multihost_out.npz")), launches
+
+    # The two clusters run side by side (the card is shared anyway).
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        procs_g = start(d1, 2, 2, "gloo")
+        procs_n = start(d2, 1, 4, "nccl")
+        try:
+            gloo, gloo_launches = collect(d1, procs_g, "gloo")
+            nccl, nccl_launches = collect(d2, procs_n, "nccl")
+        finally:
+            for p in procs_g + procs_n:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    clusters_s = time.perf_counter() - t0
+
+    zero_counters(FD, EX, FS)
+    mesh = virtual_mesh(4)
+    fn, shard = make_sharded_pipeline(
+        build_plan(SiftConfig(width=w, height=h,
+                              num_features=MULTIHOST_FEATURES)), mesh)
+    res, matches = fn(shard(det_frames(SHARDED_FRAMES, h, w))).gather()
+    torch.cuda.synchronize()
+    counts = frame_launches(FD, EX, FS, SHARDED_FRAMES, "multihost")
+    prob, *_ = synthetic_ba(seed=0, n_cams=5, n_pts=96)
+    lm, place = make_distributed_lm(mesh, iterations=10)
+    state = lm(place(prob))
+    want = {"count": res.count, "x": res.keypoints.x,
+            "desc": res.descriptors, "matches": matches}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    cost, rot = float(state.cost), state.rotations.cpu().numpy()
+
+    def held(got, bits):
+        return {"count": np.array_equal(got["count"], want["count"]),
+                "x": bool(np.allclose(got["x"], want["x"], rtol=0,
+                                      atol=1e-5)),
+                "descriptors": np.array_equal(got["desc"], want["desc"]),
+                "matches": np.array_equal(got["matches"], want["matches"]),
+                "ba_cost": (float(got["ba_cost"]) == cost) if bits
+                else math.isclose(float(got["ba_cost"]), cost,
+                                  rel_tol=1e-5, abs_tol=1e-8),
+                "ba_rotations": (np.array_equal(got["ba_rot"], rot)
+                                 if bits else bool(np.allclose(
+                                     got["ba_rot"], rot, rtol=0,
+                                     atol=1e-5)))}
+
+    per_worker = SHARDED_FRAMES // 2
+    line.update({
+        "gloo_2x2": {"held": held(gloo, False),
+                     "worker_launches": [x["launches"]
+                                         for x in gloo_launches],
+                     "ba_cost": float(gloo["ba_cost"])},
+        "nccl_1x4": {"held": held(nccl, True),
+                     "worker_launches": [x["launches"]
+                                         for x in nccl_launches]},
+        "clusters_seconds": clusters_s,
+        "ba_cost_one_process": cost, "launches": counts,
+        "keypoints": want["count"].tolist()})
+    ok = all(line["gloo_2x2"]["held"].values()) \
+        and all(line["nccl_1x4"]["held"].values()) \
+        and all(set(x["launches"].values()) == {per_worker}
+                and not any(x["plain_calls"].values())
+                for x in gloo_launches) \
+        and all(set(x["launches"].values()) == {SHARDED_FRAMES}
+                for x in nccl_launches)
+
+    # Elastic recovery.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = spawn("torch_elastic_worker.py", 2, f"file://{d}/rv1", d, 1,
+                      "--device", "cuda:0", "--shards", 2)
+        try:
+            out1, _ = procs[1].communicate(timeout=CLUSTER_TIMEOUT)
+            died = procs[1].returncode
+        finally:
+            procs[0].kill()
+            finish(procs, 60)
+        ckpt_it = int(np.load(f"{d}/ba_ckpt.npz")["iteration"])
+        final_before = os.path.exists(f"{d}/elastic_final.npz")
+        procs = spawn("torch_elastic_worker.py", 2, f"file://{d}/rv2", d,
+                      -1, "--device", "cuda:0", "--shards", 2)
+        logs = finish(procs, CLUSTER_TIMEOUT)
+        if any(p.returncode != 0 for p in procs):
+            fail("multihost: elastic resume failed:\n"
+                 + "\n".join(logs)[-6000:])
+        got = dict(np.load(f"{d}/elastic_final.npz"))
+    init, step, place = make_lm_stepper(mesh, chunk=5)
+    prob, *_ = synthetic_ba(seed=3, n_cams=5, n_pts=96)
+    placed = place(prob)
+    ref = init(placed)
+    for _ in range(3):
+        ref = step(placed, ref)
+    line["elastic"] = {
+        "worker1_exit": died, "checkpoint_iteration": ckpt_it,
+        "final_before_resume": final_before,
+        "resumed_at_10": "resuming at iteration 10" in logs[0],
+        "cost": float(got["cost"]), "cost_uninterrupted": float(ref.cost),
+        "cost_held": math.isclose(float(got["cost"]), float(ref.cost),
+                                  rel_tol=1e-5, abs_tol=1e-8),
+        "rotations_held": bool(np.allclose(
+            got["rotations"], ref.rotations.cpu().numpy(), rtol=0,
+            atol=1e-5)),
+        "seconds": time.perf_counter() - t0}
+    e = line["elastic"]
+    ok &= (died == 17 and ckpt_it == 10 and not final_before
+           and e["resumed_at_10"] and e["cost_held"] and e["rotations_held"])
+    line["card"] = smi
+    say(line)
+    if not ok:
+        fail(f"multihost: {line}" + (out1.decode(errors="replace")
+                                     if died != 17 else ""))
+    return counts
+
+
+def run_parallel_slice(FD, EX, FS, width, height, recon, smi):
+    """The eighth slice's phases, each with its counters set to 0 just
+    before it: sharded, scale_bench, distributed_ba,
+    reconstruct_distributed, multihost.  Returns the frame kernels'
+    launches by phase."""
+    launches = {"sharded": run_sharded(FD, EX, FS, smi),
+                "scale_bench": run_scale_bench(FD, EX, FS, smi)}
+    run_distributed_ba(FD, EX, FS, smi)
+    launches["reconstruct_distributed"] = run_reconstruct_distributed(
+        FD, EX, FS, width, height, recon, smi)
+    launches["multihost"] = run_multihost(FD, EX, FS, smi)
+    return launches
+
+
+
+# ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 
@@ -1846,8 +2254,8 @@ def main() -> int:
              "version or with another scheme")
     for e in kernels[5:]:
         e["launches"] = WP.launches[e["name"]]
-    vo_launches, vo_entries, vo_frames = run_slice(FD, EX, FS, WIDTH,
-                                                   HEIGHT)
+    vo_launches, vo_entries, vo_frames, recon = run_slice(FD, EX, FS,
+                                                          WIDTH, HEIGHT)
     for e in kernels[:4]:
         e["launches_vo"] = vo_launches[e["name"]]
     for main_e, vo_e in zip((k2, k3), vo_entries):
@@ -1859,6 +2267,10 @@ def main() -> int:
         e["launches_detector_slice"] = {p: c[e["name"]]
                                         for p, c in by_phase.items()}
     k4["launches_detect_cli"] = k4_cli
+    by_phase = run_parallel_slice(FD, EX, FS, WIDTH, HEIGHT, recon, smi)
+    for e in kernels[:4]:
+        e["launches_parallel_slice"] = {p: c[e["name"]]
+                                        for p, c in by_phase.items()}
     for main_e, *subs in ((k2, photo[0], tier[0]), (k3, photo[1], tier[1])):
         for sub in subs:
             main_e[sub["inputs"]] = {key: sub[key] for key in sub

@@ -20,7 +20,9 @@ window BA inside that loop.  The plan needs the widest segment on the host:
 one synchronisation when a problem is set up (``lm_optimize`` builds its
 plans once, before the iterations), none per iteration: the small solves
 and inverses are ``solve_ex`` / ``inv_ex``, which skip the error check
-(and its synchronisation) as the JAX solves do.
+(and its synchronisation) as the JAX solves do.  The observation sums
+also run over a table split into shards (``Shards``, for
+``parallel/dba.py``): each shard's partial, summed in shard order.
 
 Parameterization: camera i has twist xi in se(3) applied on the left of
 (R_i, t_i); world points X_j; intrinsics fixed per problem.  Camera 0 is
@@ -32,7 +34,7 @@ problem's dtype: float64 problems run in float64 on the CPU and on CUDA.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -224,28 +226,108 @@ def solve_schur_cg(p: BAProblem, lm_lambda, cg_iters: int = 25,
     Fixed ``cg_iters`` iterations, no host synchronisation.
 
     Returns (d_cam [C, 6], d_pt [P, 3]) like solve_schur."""
-    red = reduce if reduce is not None else (lambda x: x)
-    plan = plan if plan is not None else plan_for(p)
-    nc = p.rotations.shape[0]
-    cam = p.cam_idx.to(torch.int64)
-    pt = p.pt_idx.to(torch.int64)
-    res, j_c, j_p = _residuals_and_jacobians(p)
+    return solve_schur_cg_shards(
+        [(p, plan if plan is not None else plan_for(p))], lm_lambda,
+        cg_iters, fix_first_cam, reduce)
 
-    jtj_c = red(plan.cam.sum(torch.einsum("oki,okj->oij", j_c, j_c)))
-    g_c = red(plan.cam.sum(torch.einsum("oki,ok->oi", j_c, res)))
-    jtj_p = red(plan.pt.sum(torch.einsum("oki,okj->oij", j_p, j_p)))
-    g_p = red(plan.pt.sum(torch.einsum("oki,ok->oi", j_p, res)))
+
+# A problem whose observation table is split into shards: one
+# (BAProblem, Plan) per shard, each on its own device and holding the
+# same camera and point parameters.  Every observation sum is each
+# shard's partial summed in shard order on the first shard's device (the
+# "home", where the camera system is solved), then ``reduce`` (across
+# processes: an all_reduce).  One shard and no reduce is the
+# single-problem path, bit for bit.
+Shards = Sequence[Tuple[BAProblem, Plan]]
+
+
+def with_params(shards: Shards, rot, tr, pts) -> list:
+    """The shards with these camera and point parameters, copied to each
+    shard's device."""
+    out = []
+    for q, plan in shards:
+        d = q.cam_idx.device
+        out.append((q._replace(rotations=rot.to(d), translations=tr.to(d),
+                               points=pts.to(d)), plan))
+    return out
+
+
+def _shard_sum(parts, reduce: Optional[Callable]):
+    tot = parts[0]
+    for x in parts[1:]:
+        tot = tot + x.to(tot.device)
+    return tot if reduce is None else reduce(tot)
+
+
+def shard_cost(shards: Shards, reduce: Optional[Callable] = None):
+    """Mean squared reprojection error over all shards' valid
+    observations (``_mean_cost`` of the whole table)."""
+    num, den = [], []
+    for q, _ in shards:
+        res, _, _ = _residuals_and_jacobians(q)
+        num.append(torch.sum(res * res))
+        den.append(torch.sum(q.valid))
+    n = torch.clamp(_shard_sum(den, reduce), min=1)
+    return _shard_sum(num, reduce) / n
+
+
+def shard_terms(shards: Shards, reduce: Optional[Callable] = None):
+    """``normal_equation_terms`` of the whole table: every term is a sum
+    over observations, so the shards' terms are summed."""
+    parts = [normal_equation_terms(q, plan) for q, plan in shards]
+    return tuple(_shard_sum(list(t), reduce) for t in zip(*parts))
+
+
+class _ObsTerms(NamedTuple):
+    """One shard's per-observation quantities for the CG solve."""
+
+    cam: torch.Tensor
+    pt: torch.Tensor
+    res: torch.Tensor
+    j_c: torch.Tensor
+    j_p: torch.Tensor
+    plan: Plan
+    w_o: torch.Tensor
+
+
+def solve_schur_cg_shards(shards: Shards, lm_lambda, cg_iters: int = 25,
+                          fix_first_cam: bool = True,
+                          reduce: Optional[Callable] = None):
+    """``solve_schur_cg`` of a sharded problem (see ``Shards``): the
+    per-observation work runs on each shard's device, the camera system
+    on the home device."""
+    nc = shards[0][0].rotations.shape[0]
+    obs = []
+    for q, plan in shards:
+        res, j_c, j_p = _residuals_and_jacobians(q)
+        obs.append(_ObsTerms(
+            cam=q.cam_idx.to(torch.int64), pt=q.pt_idx.to(torch.int64),
+            res=res, j_c=j_c, j_p=j_p, plan=plan,
+            w_o=torch.einsum("oki,okj->oij", j_c, j_p)))     # [O, 6, 3]
+
+    def osum(f):
+        return _shard_sum([f(o) for o in obs], reduce)
+
+    jtj_c = osum(lambda o: o.plan.cam.sum(
+        torch.einsum("oki,okj->oij", o.j_c, o.j_c)))
+    g_c = osum(lambda o: o.plan.cam.sum(
+        torch.einsum("oki,ok->oi", o.j_c, o.res)))
+    jtj_p = osum(lambda o: o.plan.pt.sum(
+        torch.einsum("oki,okj->oij", o.j_p, o.j_p)))
+    g_p = osum(lambda o: o.plan.pt.sum(
+        torch.einsum("oki,ok->oi", o.j_p, o.res)))
 
     u = jtj_c + lm_lambda * _eye(6, jtj_c)[None]              # [C, 6, 6]
     vinv = torch.linalg.inv_ex(
         jtj_p + lm_lambda * _eye(3, jtj_p)[None]).inverse
-    w_o = torch.einsum("oki,okj->oij", j_c, j_p)              # [O, 6, 3]
 
     def a_t(x):                       # A^T x: [C, 6] -> [P, 3]
-        return red(plan.pt.sum(torch.einsum("oij,oi->oj", w_o, x[cam])))
+        return osum(lambda o: o.plan.pt.sum(torch.einsum(
+            "oij,oi->oj", o.w_o, x.to(o.w_o.device)[o.cam])))
 
     def a_(y):                        # A y: [P, 3] -> [C, 6]
-        return red(plan.cam.sum(torch.einsum("oij,oj->oi", w_o, y[pt])))
+        return osum(lambda o: o.plan.cam.sum(torch.einsum(
+            "oij,oj->oi", o.w_o, y.to(o.w_o.device)[o.pt])))
 
     gmask = torch.ones((nc, 6), dtype=u.dtype, device=u.device)
     if fix_first_cam:
@@ -258,8 +340,9 @@ def solve_schur_cg(p: BAProblem, lm_lambda, cg_iters: int = 25,
 
     # Exact block-diagonal of S (one obs per (cam, pt) pair):
     # S_cc = U_c - sum_{o: cam=c} W_o V_{pt(o)}^-1 W_o^T.
-    wvw = torch.einsum("oij,ojk,olk->oil", w_o, vinv[pt], w_o)
-    m_c = u - red(plan.cam.sum(wvw))                          # [C, 6, 6]
+    wvw = osum(lambda o: o.plan.cam.sum(torch.einsum(
+        "oij,ojk,olk->oil", o.w_o, vinv.to(o.w_o.device)[o.pt], o.w_o)))
+    m_c = u - wvw                                             # [C, 6, 6]
     if fix_first_cam:
         m_c = torch.cat([_eye(6, m_c)[None], m_c[1:]])
     minv = torch.linalg.inv_ex(m_c).inverse

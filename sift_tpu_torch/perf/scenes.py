@@ -191,3 +191,109 @@ def write_pgm(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as fh:
         fh.write(f"P5\n{w} {h}\n255\n".encode())
         fh.write(np.clip(img, 0, 255).astype(np.uint8).tobytes())
+
+
+# ---------------------------------------------------------------------------
+# Bundle-adjustment problems (the JAX tests' generators, without JAX)
+# ---------------------------------------------------------------------------
+
+
+def _so3_exp32(w) -> np.ndarray:
+    """Rotation of axis-angle ``w`` computed in float32, as the JAX tests
+    do (``se3.so3_exp`` of a float32 array)."""
+    from sift_tpu_torch.geometry.se3 import so3_exp
+    return so3_exp(torch.as_tensor(np.asarray(w), dtype=torch.float32)
+                   ).numpy()
+
+
+def synthetic_ba(seed: int = 0, n_cams: int = 6, n_pts: int = 120,
+                 noise_px: float = 0.0, perturb: float = 0.02,
+                 device=None):
+    """tests/test_ba.py's ``synthetic_ba``: cameras on an arc looking at a
+    point cloud; observations = exact projections + noise; initial
+    estimate = ground truth perturbed (camera 0 exact).  Returns
+    (float32 BAProblem on ``device``, gt rotations, translations,
+    points)."""
+    from sift_tpu_torch.core.convert import ba_problem_from_numpy
+
+    rng = np.random.default_rng(seed)
+    fx = fy = 500.0
+    cx, cy = 320.0, 240.0
+    pts = rng.uniform([-2, -2, 6], [2, 2, 12], (n_pts, 3))
+    rots, trs = [], []
+    for i in range(n_cams):
+        w = np.array([0.0, 0.25 * (i / max(n_cams - 1, 1) - 0.5), 0.0])
+        rots.append(_so3_exp32(w))
+        trs.append(np.array([-0.8 * i / max(n_cams - 1, 1) + 0.4, 0.0,
+                             0.0]))
+    rots, trs = np.stack(rots), np.stack(trs)
+    cam_idx, pt_idx, uvs = [], [], []
+    for c in range(n_cams):
+        pc = pts @ rots[c].T + trs[c]
+        uv = np.stack([pc[:, 0] / pc[:, 2] * fx + cx,
+                       pc[:, 1] / pc[:, 2] * fy + cy], -1)
+        cam_idx += [c] * n_pts
+        pt_idx += list(range(n_pts))
+        uvs.append(uv + rng.normal(0, noise_px, uv.shape))
+    rots_i, trs_i = rots.copy(), trs.copy()
+    for c in range(1, n_cams):
+        rots_i[c] = _so3_exp32(rng.normal(0, perturb, 3)) @ rots[c]
+        trs_i[c] = trs[c] + rng.normal(0, perturb, 3)
+    pts_i = pts + rng.normal(0, perturb, pts.shape)
+    prob = ba_problem_from_numpy(dict(
+        rotations=rots_i.astype(np.float32),
+        translations=trs_i.astype(np.float32),
+        points=pts_i.astype(np.float32),
+        cam_idx=np.asarray(cam_idx, np.int32),
+        pt_idx=np.asarray(pt_idx, np.int32),
+        uv=np.concatenate(uvs).astype(np.float32),
+        valid=np.ones(len(cam_idx), bool), fx=np.float32(fx),
+        fy=np.float32(fy), cx=np.float32(cx), cy=np.float32(cy)),
+        device=device)
+    return prob, rots, trs, pts
+
+
+def synthetic_ba_chain(seed: int = 0, n_cams: int = 2000,
+                       pts_per_cam: int = 2, window: int = 3,
+                       perturb: float = 0.01, device=None):
+    """tests/test_dba.py's ``synthetic_ba_chain``: a long trajectory,
+    cameras on a line, each observing only nearby points (KITTI-like
+    sparsity; ~14 observations a camera).  The dense Schur path is
+    infeasible at 2000 cameras — the reduced system alone is [12000,
+    12000] — which is what ``solver="cg"`` avoids.  Returns a float32
+    BAProblem on ``device``."""
+    from sift_tpu_torch.core.convert import ba_problem_from_numpy
+
+    rng = np.random.default_rng(seed)
+    fx = fy = 500.0
+    cx, cy = 320.0, 240.0
+    n_pts = n_cams * pts_per_cam
+    px = (np.arange(n_pts) / pts_per_cam) * 0.05 \
+        + rng.normal(0, 0.2, n_pts)
+    pts = np.stack([px, rng.uniform(-2, 2, n_pts),
+                    rng.uniform(6, 10, n_pts)], -1)
+    centers = np.stack([0.05 * np.arange(n_cams), np.zeros(n_cams),
+                        np.zeros(n_cams)], -1)
+    rots = np.tile(np.eye(3), (n_cams, 1, 1))
+    trs = -centers
+    cam_idx, pt_idx = [], []
+    for c in range(n_cams):
+        lo = max(0, (c - window) * pts_per_cam)
+        hi = min(n_pts, (c + window + 1) * pts_per_cam)
+        cam_idx += [c] * (hi - lo)
+        pt_idx += range(lo, hi)
+    cam_idx = np.asarray(cam_idx, np.int32)
+    pt_idx = np.asarray(pt_idx, np.int32)
+    pc = np.einsum("oij,oj->oi", rots[cam_idx], pts[pt_idx]) + trs[cam_idx]
+    uv = np.stack([pc[:, 0] / pc[:, 2] * fx + cx,
+                   pc[:, 1] / pc[:, 2] * fy + cy], -1)
+    trs_i = trs + np.concatenate(
+        [np.zeros((1, 3)), rng.normal(0, perturb, (n_cams - 1, 3))])
+    pts_i = pts + rng.normal(0, perturb, pts.shape)
+    return ba_problem_from_numpy(dict(
+        rotations=rots.astype(np.float32),
+        translations=trs_i.astype(np.float32),
+        points=pts_i.astype(np.float32), cam_idx=cam_idx, pt_idx=pt_idx,
+        uv=uv.astype(np.float32), valid=np.ones(len(cam_idx), bool),
+        fx=np.float32(fx), fy=np.float32(fy), cx=np.float32(cx),
+        cy=np.float32(cy)), device=device)

@@ -70,10 +70,12 @@ def gram_u8(query: torch.Tensor, train: torch.Tensor,
 def match_brute_force(query: torch.Tensor, train: torch.Tensor,
                       q_valid=None, t_valid=None,
                       ratio: float = 0.8) -> torch.Tensor:
-    """query: [Q, 128]; train: [..., S, 128] — uint8 (0..255 quantised
-    storage, config.descriptor_dtype="uint8") or float (0..255/0..512
-    quantised); ``t_valid`` [..., S].  Returns [..., Q] int32: index into
-    train, or -1."""
+    """query: [Q, 128] or [..., Q, 128] (the train set's leading axes: one
+    query set per train set, as ``parallel/batched.sequential_match``
+    uses it); train: [..., S, 128] — uint8 (0..255 quantised storage,
+    config.descriptor_dtype="uint8") or float (0..255/0..512 quantised);
+    ``t_valid`` [..., S].  Returns [..., Q] int32: index into train, or
+    -1."""
     if _is_int(query) and _is_int(train):
         # u8-quantised descriptors: the Gram product is exact in float32
         # (gram_u8), as the JAX package's bf16 product with

@@ -11,10 +11,12 @@ need cv2.
 
 Usage: python -m sift_tpu_torch.tools.reconstruct IMG1 IMG2 [IMG...]
        [--fx F] [--fy F] [--cx X] [--cy Y] [--num-features 2000]
-       [--ba-iters 10] [--device cuda|cpu]
+       [--ba-iters 10] [--device cuda|cpu] [--distributed [--cpu-mesh N]]
 Intrinsics default to fx=fy=0.9*max(W,H), principal point at the center.
 Without --device the GPU is used, and the tool raises if there is none.
-``--distributed`` (BA sharded over devices) is not ported yet.
+``--distributed`` runs BA with the observations sharded over a mesh
+(``parallel/dba.py``): one shard per GPU, or with ``--device cpu`` the
+``--cpu-mesh N`` CPU shards (default 1).
 """
 
 from __future__ import annotations
@@ -38,18 +40,17 @@ def main(argv=None):
     p.add_argument("--ba-iters", type=int, default=10)
     p.add_argument("--ransac-iters", type=int, default=256)
     p.add_argument("--distributed", action="store_true",
-                   help="run BA with observations sharded over all devices "
-                        "(not ported yet)")
+                   help="run BA with observations sharded over all devices")
+    p.add_argument("--cpu-mesh", type=int, default=0,
+                   help="with --device cpu --distributed: N CPU shards")
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' runs the "
                         "plain versions on the CPU)")
     args = p.parse_args(argv)
     if len(args.images) < 2:
         raise SystemExit("need at least two images")
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: the distributed BA (parallel/dba.py) is not "
-            "ported yet (ROADMAP A16)")
+    if args.cpu_mesh and not (args.distributed and args.device == "cpu"):
+        raise SystemExit("--cpu-mesh goes with --distributed --device cpu")
 
     from sift_tpu_torch.config import SiftConfig
     from sift_tpu_torch.geometry import se3
@@ -148,8 +149,17 @@ def main(argv=None):
 
     c0 = float(_mean_cost(prob, prob.rotations, prob.translations,
                           prob.points))
-    out = lm_optimize(prob, args.ba_iters)
-    mode = "single device"
+    if args.distributed:
+        from sift_tpu_torch.parallel.batched import make_mesh
+        from sift_tpu_torch.parallel.dba import make_distributed_lm
+
+        mesh = make_mesh(args.cpu_mesh or None, device=dev.type)
+        fn, place = make_distributed_lm(mesh, iterations=args.ba_iters)
+        out = fn(place(prob))
+        mode = f"distributed over {mesh.size} devices"
+    else:
+        out = lm_optimize(prob, args.ba_iters)
+        mode = "single device"
     print(f"BA ({mode}): mean sq reproj {c0:.4f} -> {float(out.cost):.4f} "
           f"px^2 over {len(cam_idx)} observations, {n_points} points")
     for i in range(len(frames)):

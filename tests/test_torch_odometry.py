@@ -439,8 +439,18 @@ def test_reconstruct_cli(sequence, tmp_path, monkeypatch, capsys):
     assert n_pts > 50 and n_obs >= 2 * n_pts
     assert c1 <= c0 and c1 < 1.0, out
     assert "BA (single device)" in out and "pose 2: |rot|" in out
-    with pytest.raises(NotImplementedError, match="A16"):
-        cli.main(files + ["--distributed", "--device", "cpu"])
+    # --distributed: BA over 4 CPU shards (tests/test_reconstruct.py:45-49)
+    cli.main(files + ["--fx", str(FX), "--num-features", str(CAP),
+                      "--ransac-iters", str(RANSAC_ITERS), "--device",
+                      "cpu", "--distributed", "--cpu-mesh", "4"])
+    out = capsys.readouterr().out
+    m = re.search(r"mean sq reproj ([0-9.]+) -> ([0-9.]+) px\^2 over "
+                  r"(\d+) observations, (\d+) points", out)
+    assert m, out
+    c0d, c1d = float(m.group(1)), float(m.group(2))
+    assert (c0d, int(m.group(3)), int(m.group(4))) == (c0, n_obs, n_pts)
+    assert c1d <= c0d and c1d < 1.0, out
+    assert "distributed over 4 devices" in out and "pose 2: |rot|" in out
 
 
 def test_scenes_render_as_the_jax_tests_do():

@@ -194,7 +194,10 @@ others = ["sift_tpu_torch.io.image", "sift_tpu_torch.io.native",
           "sift_tpu_torch.perf.telemetry", "sift_tpu_torch.tools.odometry",
           "sift_tpu_torch.tools.reconstruct", "sift_tpu_torch.tools.detect",
           "sift_tpu_torch.tools.extract_and_match",
-          "sift_tpu_torch.ops.patches"]
+          "sift_tpu_torch.ops.patches", "sift_tpu_torch.parallel",
+          "sift_tpu_torch.parallel.batched", "sift_tpu_torch.parallel.dba",
+          "sift_tpu_torch.parallel.multihost",
+          "sift_tpu_torch.tools.scale_bench"]
 missing = sorted(set(geometry + others) - set(names))
 assert not missing, missing
 bad = [m for m in sys.modules
