@@ -22,7 +22,9 @@ plans once, before the iterations), none per iteration: the small solves
 and inverses are ``solve_ex`` / ``inv_ex``, which skip the error check
 (and its synchronisation) as the JAX solves do.  The observation sums
 also run over a table split into shards (``Shards``, for
-``parallel/dba.py``): each shard's partial, summed in shard order.
+``parallel/dba.py``): each shard's partial, summed in shard order.  One
+LM loop (``lm_iterations``) serves both: ``lm_optimize`` is its one-shard
+case.
 
 Parameterization: camera i has twist xi in se(3) applied on the left of
 (R_i, t_i); world points X_j; intrinsics fixed per problem.  Camera 0 is
@@ -140,13 +142,6 @@ def _residuals_and_jacobians(p: BAProblem):
     j_pt = j_proj @ r                                         # [O, 2, 3]
     w = p.valid.to(res.dtype)[:, None]
     return res * w, j_cam * w[..., None], j_pt * w[..., None]
-
-
-def _mean_cost(p: BAProblem, rot, tr, pts):
-    q = p._replace(rotations=rot, translations=tr, points=pts)
-    res, _, _ = _residuals_and_jacobians(q)
-    n = torch.clamp(torch.sum(p.valid), min=1)
-    return torch.sum(res * res) / n
 
 
 def normal_equation_terms(p: BAProblem, plan: Optional[Plan] = None):
@@ -271,6 +266,11 @@ def shard_cost(shards: Shards, reduce: Optional[Callable] = None):
     return _shard_sum(num, reduce) / n
 
 
+def _mean_cost(p: BAProblem, rot, tr, pts):
+    return shard_cost([(p._replace(rotations=rot, translations=tr,
+                                   points=pts), None)])
+
+
 def shard_terms(shards: Shards, reduce: Optional[Callable] = None):
     """``normal_equation_terms`` of the whole table: every term is a sum
     over observations, so the shards' terms are summed."""
@@ -382,36 +382,40 @@ def lm_step(p: BAProblem, lm_lambda, fix_first_cam: bool = True,
             plan: Optional[Plan] = None):
     """One damped Gauss-Newton (LM) step with Schur elimination of points.
     Returns (d_twist [C,6], d_points [P,3])."""
-    terms = normal_equation_terms(p, plan)
-    return solve_schur(*terms, lm_lambda, fix_first_cam)
+    shards = [(p, plan if plan is not None else plan_for(p))]
+    return solve_schur(*shard_terms(shards), lm_lambda, fix_first_cam)
 
 
-def apply_step(p: BAProblem, d_cam, d_pt):
+def apply_step(p, d_cam, d_pt):
+    """The parameters of ``p`` (a BAProblem or BAState) after the step."""
     dr, dt = se3.se3_exp(d_cam)
     rot = dr @ p.rotations
     tr = (dr @ p.translations[..., None])[..., 0] + dt
     return rot, tr, p.points + d_pt
 
 
-def lm_optimize(p: BAProblem, iterations: int = 10,
-                init_lambda: float = 1e-4) -> BAState:
-    """Full LM loop: a fixed number of iterations, accept/reject by
-    masking with ``torch.where`` — no host synchronisation inside."""
-    plan = plan_for(p)
-    dt = p.points.dtype
-    state = BAState(rotations=p.rotations, translations=p.translations,
-                    points=p.points,
-                    cost=_mean_cost(p, p.rotations, p.translations,
-                                    p.points),
-                    lm_lambda=torch.tensor(init_lambda, dtype=dt,
-                                           device=p.points.device))
+def lm_iterations(shards: Shards, state: BAState, iterations: int,
+                  solver: str = "dense", cg_iters: int = 25,
+                  reduce: Optional[Callable] = None) -> BAState:
+    """``iterations`` LM iterations of a sharded problem (see ``Shards``)
+    from ``state``, which lies on the home device: a damped step
+    (``solver`` "dense": Schur reduction and dense camera solve; "cg":
+    ``solve_schur_cg_shards``), accepted or rejected by masking with
+    ``torch.where`` — no host synchronisation inside.  The body depends
+    only on (shards, state), so k calls of n iterations give the bits of
+    one call of k*n."""
     for _ in range(iterations):
-        q = p._replace(rotations=state.rotations,
-                       translations=state.translations,
-                       points=state.points)
-        d_cam, d_pt = lm_step(q, state.lm_lambda, plan=plan)
-        rot, tr, pts = apply_step(q, d_cam, d_pt)
-        new_cost = _mean_cost(p, rot, tr, pts)
+        q = with_params(shards, state.rotations, state.translations,
+                        state.points)
+        if solver == "cg":
+            d_cam, d_pt = solve_schur_cg_shards(q, state.lm_lambda,
+                                                cg_iters=cg_iters,
+                                                reduce=reduce)
+        else:
+            d_cam, d_pt = solve_schur(*shard_terms(q, reduce),
+                                      state.lm_lambda)
+        rot, tr, pts = apply_step(state, d_cam, d_pt)
+        new_cost = shard_cost(with_params(shards, rot, tr, pts), reduce)
         accept = new_cost < state.cost
         lam = torch.where(accept, state.lm_lambda * 0.5,
                           state.lm_lambda * 4.0)
@@ -427,3 +431,14 @@ def lm_optimize(p: BAProblem, iterations: int = 10,
             cost=pick(new_cost, state.cost),
             lm_lambda=lam)
     return state
+
+
+def lm_optimize(p: BAProblem, iterations: int = 10,
+                init_lambda: float = 1e-4) -> BAState:
+    """Full LM loop: ``lm_iterations`` of the one-shard problem."""
+    shards = [(p, plan_for(p))]
+    state = BAState(rotations=p.rotations, translations=p.translations,
+                    points=p.points, cost=shard_cost(shards),
+                    lm_lambda=torch.tensor(init_lambda, dtype=p.points.dtype,
+                                           device=p.points.device))
+    return lm_iterations(shards, state, iterations)

@@ -21,6 +21,9 @@ Counterpart of ``sift_tpu/parallel/dba.py``.  Decomposition:
     S-matvecs (``geometry/ba.solve_schur_cg_shards``) — nothing dense in C
     is ever formed, so global BA scales to thousands of cameras.
 
+The LM loop is ``geometry/ba.lm_iterations``, the one ``lm_optimize``
+runs on a single shard.
+
 Elastic recovery: ``make_lm_stepper`` exposes the LM loop as a resumable
 (init, step) pair over the replicated BAState; running k chunks of n
 iterations is bit-identical to one chunk of k*n (the loop body depends only
@@ -36,8 +39,7 @@ from typing import List, NamedTuple
 import torch
 
 from sift_tpu_torch.geometry.ba import (BAProblem, BAState, Plan, Segments,
-                                        apply_step, shard_cost, shard_terms,
-                                        solve_schur, solve_schur_cg_shards,
+                                        lm_iterations, shard_cost,
                                         with_params)
 from sift_tpu_torch.parallel.batched import Mesh
 
@@ -119,50 +121,18 @@ def make_lm_stepper(mesh: Mesh, axis: str = "data", chunk: int = 5,
         return PlacedProblem(home=home, shards=with_params(
             shards, home.rotations, home.translations, home.points))
 
-    def cost_of(pp: PlacedProblem, rot, tr, pts):
-        return shard_cost(with_params(pp.shards, rot, tr, pts), reduce)
-
     def init(pp: PlacedProblem) -> BAState:
         h = pp.home
         return BAState(
             rotations=h.rotations, translations=h.translations,
-            points=h.points,
-            cost=cost_of(pp, h.rotations, h.translations, h.points),
+            points=h.points, cost=shard_cost(pp.shards, reduce),
             lm_lambda=torch.tensor(init_lambda, dtype=h.points.dtype,
                                    device=home_dev))
 
     def step(pp: PlacedProblem, state: BAState) -> BAState:
         state = BAState(*[torch.as_tensor(t).to(home_dev) for t in state])
-        for _ in range(chunk):
-            q = pp.home._replace(rotations=state.rotations,
-                                 translations=state.translations,
-                                 points=state.points)
-            shards = with_params(pp.shards, q.rotations, q.translations,
-                                 q.points)
-            if solver == "cg":
-                d_cam, d_pt = solve_schur_cg_shards(
-                    shards, state.lm_lambda, cg_iters=cg_iters,
-                    reduce=reduce)
-            else:
-                # The Schur reduction: every normal-equation term is a
-                # sum over observations -> summed over the shards.
-                d_cam, d_pt = solve_schur(*shard_terms(shards, reduce),
-                                          state.lm_lambda)
-            rot, tr, pts = apply_step(q, d_cam, d_pt)
-            new_cost = cost_of(pp, rot, tr, pts)
-            accept = new_cost < state.cost
-            lam = torch.clamp(torch.where(accept, state.lm_lambda * 0.5,
-                                          state.lm_lambda * 4.0), 1e-8, 1e4)
-
-            def pick(a, b):
-                return torch.where(accept, a, b)
-
-            state = BAState(
-                rotations=pick(rot, state.rotations),
-                translations=pick(tr, state.translations),
-                points=pick(pts, state.points),
-                cost=pick(new_cost, state.cost), lm_lambda=lam)
-        return state
+        return lm_iterations(pp.shards, state, chunk, solver, cg_iters,
+                             reduce)
 
     return init, step, place
 
