@@ -21,7 +21,11 @@ its golden replayed by ``tools/perf.py``, and ``tools/extract_and_match.py
 over four virtual shards of the one card, ``tools/scale_bench.py``,
 distributed bundle adjustment, ``reconstruct --distributed``, and worker
 processes sharing the card against one process (with the elastic
-kill-and-resume).  Every hand-written CUDA kernel is held against its
+kill-and-resume), and the detector's band-blocked padded pyramid at the
+reference's three frame sizes against the dense one, with the port's
+measuring tools (``tools/benchmark.py``, ``perf/stage_bench.py``,
+``perf/kernel_bench.py``, ``perf/mem_analysis.py``) run at their
+defaults.  Every hand-written CUDA kernel is held against its
 plain PyTorch version on the card, at the shapes its path gives it, and
 each path's launch counters are set to 0 just before it runs and read
 just after.  Phases (one JSON line each): ``device``, ``build``,
@@ -30,8 +34,9 @@ just after.  Phases (one JSON line each): ``device``, ``build``,
 ``loop_closure``, ``reconstruct``, ``odometry_cli``, ``ba_float64``,
 ``cv2_parity``, ``tiers``, ``conv_pyramid``, ``detect_cli``,
 ``extract_and_match_cli``, ``sharded``, ``scale_bench``,
-``distributed_ba``, ``reconstruct_distributed``, ``multihost``, then the
-``kernels`` line; any failure exits non-zero.
+``distributed_ba``, ``reconstruct_distributed``, ``multihost``,
+``banded_pyramid``, ``tools``, then the ``kernels`` line; any failure
+exits non-zero.
 Needs one CUDA device, ``nvcc``, a C++ compiler (the native PGM loader)
 and the checkout's ``tests/data/cv2_parity_oracle.npz``; imports
 ``sift_tpu_torch``, ``torch`` and ``numpy`` only.  The
@@ -1457,7 +1462,7 @@ def run_conv_pyramid(det, f1, r_matmul, FD, EX, FS):
                               downsample="nearest")
     plan = build_plan(cfg)
     ops = plan_operators(plan, f1.device)
-    pm_ops = plan_operators(det.plan, f1.device)
+    pm_ops = plan_operators(det.plan, f1.device, "dense")
     pm = gaussian_pyramid(det.plan, f1, pm_ops)
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -2093,6 +2098,206 @@ def run_parallel_slice(FD, EX, FS, width, height, recon, smi):
 
 
 # ---------------------------------------------------------------------------
+# The ninth slice: the band-blocked padded pyramid and the measuring tools
+# ---------------------------------------------------------------------------
+
+BENCH_SIZES = ((752, 480), (1600, 900), (1920, 1200))  # the reference's
+BENCH_FEATURES = 5000
+BENCH_TIERS = (1024, 2048)
+BENCH_BATCH = 4
+PYRAMID_ATOL = 2e-4         # tests/test_pyramid.py:106
+
+
+def pyramid_gflop(plan):
+    """float32 GFLOP of one pyramid (multiply + add each one operation)
+    through the dense operators and through the band blocks, from the
+    plan's shapes (init blur, carries, every octave's layer stack)."""
+    dims = [(op.height, op.width) for op in plan.octaves]
+    nl = plan.config.num_gauss_layers
+    h0, w0 = dims[0]
+    dense = 2 * (h0 * h0 * w0 + h0 * w0 * w0)
+    for o, (h, w) in enumerate(dims):
+        if o:
+            ph, pw = dims[o - 1]
+            dense += 2 * (h * ph * pw + h * pw * w)
+        dense += 2 * nl * (h * h * w + h * w * w)
+
+    def banded(pair, w_in):
+        (vb, _), (hb, _) = pair
+        nt, n, t, bv = vb.shape
+        ntc, _, tc, bh = hb.shape
+        return 2 * nt * n * t * bv * w_in + 2 * ntc * n * nt * t * bh * tc
+
+    band = banded(plan.init_tiled, w0)
+    for o, (h, w) in enumerate(dims):
+        if o:
+            band += banded(plan.carry_tiled[o], dims[o - 1][1])
+        band += banded((plan.tiled_v[o], plan.tiled_h[o]), w)
+    return dense / 1e9, band / 1e9
+
+
+def run_banded_pyramid(FD, EX, FS, smi):
+    """The detector's band-blocked padded pyramid at the reference's three
+    frame sizes (``num_features=5000``, ``bench_image``): its content
+    against the dense pyramid (atol 2e-4), its padding exactly 0, K1 on the
+    padded octaves against its plain version bit for bit; each pyramid's
+    time (CUDA events, median of 20) and device operations
+    (torch.profiler); then one detector frame with the counters set to 0
+    just before it (each frame kernel once) and ``frame_ms``.  Returns the
+    keypoint count by size and the frame kernels' launches by size."""
+    from sift_tpu_torch import SiftConfig, SiftDetector
+    from sift_tpu_torch.config import SIFT_IMG_BORDER
+    from sift_tpu_torch.core.types import HALO
+    from sift_tpu_torch.ops.pyramid import (gaussian_pyramid,
+                                            gaussian_pyramid_padded,
+                                            padded_content_views,
+                                            plan_operators)
+    from sift_tpu_torch.perf.benchimg import bench_image
+
+    rows, counts, launches = [], {}, {}
+    for w, h in BENCH_SIZES:
+        cfg = SiftConfig(width=w, height=h, num_features=BENCH_FEATURES)
+        det = SiftDetector(cfg)
+        det.warm_up()
+        plan = det.plan
+        f = torch.as_tensor(bench_image(h, w), device=det.device)
+        ops_p = plan_operators(plan, det.device)
+        ops_d = plan_operators(plan, det.device, "dense")
+        gp = gaussian_pyramid_padded(plan, f, ops_p)
+        views = padded_content_views(plan, gp)
+        dense = gaussian_pyramid(plan, f, ops_d)
+        err = [float((v - d).abs().max()) for v, d in zip(views, dense)]
+        pad_nonzero = 0
+        for g, op in zip(gp, plan.octaves):
+            z = g.clone()
+            z[:, HALO:HALO + op.height, :op.width] = 0
+            pad_nonzero += int((z != 0).sum())
+        args = (float(cfg.peak_threshold), SIFT_IMG_BORDER,
+                float(cfg.edge_threshold), float(cfg.contrast_threshold),
+                cfg.num_octave_layers)
+        ker = FD.detect_records_cuda(views, *args)
+        pla = FD.detect_records_plain(views, *args)
+        torch.cuda.synchronize()
+        k1_exact = all(torch.equal(a, b) for a, b in zip(ker, pla))
+        gflop_dense, gflop_banded = pyramid_gflop(plan)
+        padded_fn = lambda: gaussian_pyramid_padded(plan, f, ops_p)
+        dense_fn = lambda: gaussian_pyramid(plan, f, ops_d)
+        prof_p = frame_device_profile(padded_fn)
+        prof_d = frame_device_profile(dense_fn)
+        torch.cuda.synchronize()
+        zero_counters(FD, EX, FS)
+        res = det.detect_and_compute(f)
+        torch.cuda.synchronize()
+        size = f"{w}x{h}"
+        launches[size] = frame_launches(FD, EX, FS, 1,
+                                        f"banded_pyramid {size}")
+        counts[size] = int(res.count)
+        row = {"size": size, "keypoints": counts[size],
+               "padded_shapes": [list(g.shape) for g in gp],
+               "max_abs_err_vs_dense": max(err),
+               "max_abs_err_per_octave": err,
+               "padding_nonzero": pad_nonzero,
+               "k1_bit_exact_on_padded": k1_exact,
+               "gflop_dense": gflop_dense, "gflop_banded": gflop_banded,
+               "bound_ms_dense": gflop_dense * 1e9 / PEAK_F32_FLOPS * 1e3,
+               "bound_ms_banded": gflop_banded * 1e9 / PEAK_F32_FLOPS * 1e3,
+               "pyramid_ms_banded": time_ms(padded_fn),
+               "pyramid_ms_dense": time_ms(dense_fn),
+               "device_ms_banded": prof_p["device_ms"],
+               "device_ms_dense": prof_d["device_ms"],
+               "device_ops_banded": prof_p["device_ops"],
+               "device_ops_dense": prof_d["device_ops"],
+               "top_banded": prof_p["top"],
+               "frame_ms": time_ms(lambda: det.detect_and_compute(f)),
+               "launches": launches[size]}
+        rows.append(row)
+        if max(err) > PYRAMID_ATOL or pad_nonzero or not k1_exact:
+            say({"phase": "banded_pyramid", "card": smi, "sizes": rows})
+            fail(f"banded_pyramid {size}: error {max(err)} (atol "
+                 f"{PYRAMID_ATOL}), {pad_nonzero} padding values not 0, "
+                 f"K1 bit-exact {k1_exact}")
+        del det, gp, views, dense, ops_p, ops_d
+    say({"phase": "banded_pyramid", "card": smi, "sizes": rows})
+    return counts, launches
+
+
+def run_tools(counts, FD, EX, FS, smi):
+    """The port's measuring tools on the card: ``tools.benchmark --batch 4
+    --tiers 1024 2048`` as a subprocess at its default sizes, then
+    ``perf.stage_bench``, ``perf.kernel_bench`` and ``perf.mem_analysis``
+    at their defaults in this process.  Every value must be finite and
+    positive (a stage's delta only finite), and every ``keypoints`` the
+    detector's count at that size (``counts``, from banded_pyramid)."""
+    import re
+
+    from sift_tpu_torch.perf import kernel_bench, mem_analysis, stage_bench
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "sift_tpu_torch.tools.benchmark",
+           "--batch", str(BENCH_BATCH), "--tiers",
+           *[str(t) for t in BENCH_TIERS]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    seconds = {"benchmark": time.perf_counter() - t0}
+    if proc.returncode != 0:
+        fail(f"tools: benchmark exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    bench = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    line = {"phase": "tools", "card": smi, "benchmark_cmd": " ".join(cmd[1:]),
+            "benchmark": bench}
+    names = [b["metric"] for b in bench]
+    want = []
+    for w, h in BENCH_SIZES:
+        want += [f"detect_compute_{w}x{h}"] + [
+            f"detect_compute_{w}x{h}_tier{t}" for t in BENCH_TIERS] + [
+            f"detect_compute_{w}x{h}_batch{BENCH_BATCH}"]
+    bad = [] if names == want + ["match_2000x2000"] else [("names", names)]
+    for b in bench:
+        if not (math.isfinite(b["value"]) and b["value"] > 0):
+            bad.append((b["metric"], b["value"]))
+        if "keypoints" in b:
+            size = re.match(r"detect_compute_(\d+x\d+)", b["metric"])[1]
+            if b["keypoints"] != counts[size]:
+                bad.append((b["metric"], b["keypoints"], counts[size]))
+    for name, mod in (("stage_bench", stage_bench),
+                      ("kernel_bench", kernel_bench),
+                      ("mem_analysis", mem_analysis)):
+        torch.cuda.synchronize()
+        zero_counters(FD, EX, FS)
+        t0 = time.perf_counter()
+        out, ret, code = stdout_of(mod.main, [])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        line[name] = {"lines": out.splitlines(), "result": ret,
+                      "launches": {**FD.launches, **EX.launches,
+                                   **FS.launches}}
+        if code not in (None, 0):
+            bad.append((name, "exit", code))
+    for r in line["stage_bench"]["result"] or [None]:
+        if not (r and math.isfinite(r["cum_ms"]) and r["cum_ms"] > 0
+                and math.isfinite(r["delta_ms"])):
+            bad.append(("stage_bench", r))
+    if len(line["stage_bench"]["result"] or ()) != 8:
+        bad.append(("stage_bench", "not 8 stages"))
+    kb = line["kernel_bench"]["result"] or {}
+    if set(kb) != {"detect_records", "expand_lane_copies",
+                   "orientation_hist", "descriptor_hist"} or not all(
+            math.isfinite(v) and v > 0 for v in kb.values()):
+        bad.append(("kernel_bench", kb))
+    for m in line["mem_analysis"]["result"] or [None]:
+        keys = ("temp_mib", "args_mib", "output_mib", "total_mib")
+        if not (m and all(math.isfinite(m[k]) and m[k] > 0 for k in keys)):
+            bad.append(("mem_analysis", m))
+    line["seconds"] = seconds
+    say(line)
+    if bad:
+        fail(f"tools: {bad}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 
@@ -2271,6 +2476,11 @@ def main() -> int:
     for e in kernels[:4]:
         e["launches_parallel_slice"] = {p: c[e["name"]]
                                         for p, c in by_phase.items()}
+    counts_by_size, by_size = run_banded_pyramid(FD, EX, FS, smi)
+    for e in kernels[:4]:
+        e["launches_banded_pyramid"] = {p: c[e["name"]]
+                                        for p, c in by_size.items()}
+    run_tools(counts_by_size, FD, EX, FS, smi)
     for main_e, *subs in ((k2, photo[0], tier[0]), (k3, photo[1], tier[1])):
         for sub in subs:
             main_e[sub["inputs"]] = {key: sub[key] for key in sub

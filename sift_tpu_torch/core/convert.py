@@ -11,6 +11,7 @@ back into numpy, so the two packages can be run on identical state.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.core.types import (Keypoints, SiftPlan, SiftResult,
-                                       octave_plans)
+                                       octave_plans, tiled_operators)
 
 _TPU_ONLY = ("gather_impl",)   # config fields with no counterpart here
 
@@ -35,7 +36,9 @@ def plan_from_numpy(cfg: dict, arrays: Dict[str, object]) -> SiftPlan:
     ``carry_v``/``carry_h`` as per-octave sequences of numpy arrays,
     ``init_v``/``init_h`` arrays, ``up_v``/``up_h`` arrays or None;
     optionally ``down_v``/``down_h``, ``kernels_1d``, ``init_kernel_1d``.
-    Geometry and capacities are recomputed from the config."""
+    Geometry and capacities are recomputed from the config, and the
+    band-blocked operators of the padded pyramid are cut from the given
+    ones (core/types.tiled_operators)."""
     config = config_from_dict(cfg)
     octs = octave_plans(config)
 
@@ -71,7 +74,15 @@ def plan_from_numpy(cfg: dict, arrays: Dict[str, object]) -> SiftPlan:
                 or plan.blur_h[o].shape[-1] != op.width:
             raise ValueError(f"octave {o}: operator shapes do not match "
                              f"{op.height}x{op.width}")
-    return plan
+    f64 = lambda a: np.asarray(a, np.float64)
+    tiled = tiled_operators(
+        [(op.height, op.width) for op in octs],
+        [list(f64(b)) for b in plan.blur_v],
+        [list(f64(b)) for b in plan.blur_h],
+        f64(plan.init_v), f64(plan.init_h),
+        [None] + [(f64(v), f64(h)) for v, h in zip(plan.carry_v[1:],
+                                                   plan.carry_h[1:])])
+    return dataclasses.replace(plan, **tiled)
 
 
 def padded_pyramid_from_numpy(values, height, width, layers: int,

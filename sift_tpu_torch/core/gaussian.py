@@ -4,16 +4,19 @@ Equivalent capability to the reference's ``GaussianUtils``
 (sift_cuda/utils/GaussianUtils.cc:6-68) — 1-D/2-D Gaussian
 kernels with size ``int(round(sigma*truncate + 1)) | 1`` and ``sum == 1``.
 
-Counterpart of ``sift_tpu/core/gaussian.py`` (numpy only; the band-blocked
-form ``banded_blocks_multi`` of the TPU's tiled pyramid is not carried).
-Instead of running separable convolutions with these kernels, each blur is
-baked into a **banded linear operator** (a [N, N] matrix applying the
-kernel with BORDER_REFLECT_101 boundary handling, mirroring reflect101 in
+Counterpart of ``sift_tpu/core/gaussian.py`` (numpy only).  Instead of
+running separable convolutions with these kernels, each blur is baked into
+a **banded linear operator** (a [N, N] matrix applying the kernel with
+BORDER_REFLECT_101 boundary handling, mirroring reflect101 in
 image_func/Filter.cuh:52-66).  A separable 2-D blur of image ``I`` is then
-``V @ I @ H.T`` — two matrix products, batched over pyramid layers.  Operator *composition* (matrix products, done here on the
-host in float64) gives every pyramid layer directly from the octave base
-while remaining numerically equivalent to the reference's sequential blur
-chain (interface/Detector.cu:292-303).
+``V @ I @ H.T`` — two matrix products, batched over pyramid layers.
+Operator *composition* (matrix products, done here on the host in float64)
+gives every pyramid layer directly from the octave base while remaining
+numerically equivalent to the reference's sequential blur chain
+(interface/Detector.cu:292-303).  ``banded_blocks_multi`` cuts such
+operators into row tiles that each read only a band of input rows: the
+detector's pyramid (ops/blur.blur_tiled) costs O(n * band * w) instead of
+the dense operators' O(n^2 * w).
 """
 
 from __future__ import annotations
@@ -77,6 +80,59 @@ def blur_operator(length: int, kernel: np.ndarray,
         cols = reflect101_index(rows + (t - half), length)
         np.add.at(m, (rows, cols), kernel[t])
     return m.astype(dtype)
+
+
+def banded_blocks_multi(ops, tile: int, pad_top: int, out_rows: int,
+                        dtype=np.float32):
+    """Band-blocked form of a stack of banded operators, for the tiled
+    blur (ops/blur.blur_tiled).
+
+    ops: list of [n_content, n_in] float64 operators sharing n_in (the
+    per-layer composed blur chains).  Conceptually each is zero-padded to
+    [out_rows, n_in] with its rows placed at [pad_top, pad_top +
+    n_content) — the padded pyramid layout — then cut into out_rows //
+    tile uniform row tiles.  Because the operators are banded, tile t only
+    reads input columns [off[t], off[t] + band): the dense [n, n] @ [n, w]
+    product (O(n^2 w)) becomes nT [tile, band] @ [band, w] products
+    (O(n * band * w)).
+
+    Columns whose largest tap is below 1e-9 of the operator's max are
+    dropped from the band: the composed chains' tails decay to 1e-30
+    while the f32 arithmetic floor is ~1e-7.  The band is rounded up to a
+    multiple of 8 columns.
+
+    Returns (blocks [nT, len(ops), tile, band] ``dtype``, offsets [nT]
+    int64 numpy — each tile's first input row)."""
+    n_c, n_in = ops[0].shape
+    assert out_rows % tile == 0
+    nt = out_rows // tile
+    exts = []
+    for t in range(nt):
+        r0 = max(t * tile - pad_top, 0)
+        r1 = min((t + 1) * tile - pad_top, n_c)
+        if r0 >= r1:
+            exts.append((0, 1))
+            continue
+        lo, hi = n_in, 0
+        for op in ops:
+            sub = np.abs(op[r0:r1])
+            nz = np.nonzero(sub.max(axis=0) > 1e-9 * sub.max())[0]
+            lo, hi = min(lo, int(nz[0])), max(hi, int(nz[-1]) + 1)
+        exts.append((lo, hi))
+    band = max(hi - lo for lo, hi in exts)
+    band = min(-(-band // 8) * 8, n_in)
+    blocks = np.zeros((nt, len(ops), tile, band), np.float64)
+    offs = np.zeros((nt,), np.int64)
+    for t, (lo, hi) in enumerate(exts):
+        off = min(max(lo, 0), n_in - band)
+        offs[t] = off
+        r0 = max(t * tile - pad_top, 0)
+        r1 = min((t + 1) * tile - pad_top, n_c)
+        if r0 < r1:
+            a = r0 + pad_top - t * tile
+            for li, op in enumerate(ops):
+                blocks[t, li, a:a + (r1 - r0)] = op[r0:r1, off:off + band]
+    return blocks.astype(dtype), offs
 
 
 def resize_operator(out_len: int, in_len: int,

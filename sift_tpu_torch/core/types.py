@@ -4,9 +4,11 @@ Counterpart of ``sift_tpu/core/types.py``.  Every keypoint array has a
 *static* capacity and a ``valid`` mask; counts live on the device as
 ``valid.sum()`` and never round-trip to the host mid-pipeline.  The plan is
 built on the host in numpy (float64 operator composition) and keeps numpy
-arrays; ``SiftDetector`` moves them to its device once.  The TPU tiling
-fields of the JAX plan (band-blocked operators for the padded pyramid) have
-no counterpart here.
+arrays; ``SiftDetector`` moves them to its device once.  Beside the dense
+operators the plan carries their band-blocked form, from which the
+detector builds its pyramid in the padded layout that the record-field
+kernel reads in place (``padded_shape``;
+ops/pyramid.gaussian_pyramid_padded).
 """
 
 from __future__ import annotations
@@ -19,6 +21,24 @@ import torch
 
 from sift_tpu_torch.config import SiftConfig
 from sift_tpu_torch.core import gaussian as g
+
+
+# The padded pyramid layout (the JAX package's own geometry): content rows
+# at [HALO, HALO + h), columns [0, w), zeros elsewhere.  The rows cover the
+# record-field kernel's tile grid of TILE_ROWS rows plus a HALO above and
+# below, and both axes round up to whole BAND_TILE tiles of the
+# band-blocked operators.
+HALO = 8
+TILE_ROWS = 32
+BAND_TILE = 128
+
+
+def padded_shape(h: int, w: int) -> Tuple[int, int]:
+    """(rows, columns) of one octave of content h x w in the padded
+    layout."""
+    need = TILE_ROWS * (-(-h // TILE_ROWS)) + 2 * HALO
+    return (BAND_TILE * (-(-need // BAND_TILE)),
+            BAND_TILE * (-(-max(w, BAND_TILE) // BAND_TILE)))
 
 
 class Keypoints(NamedTuple):
@@ -123,6 +143,42 @@ class SiftPlan:
     # checkpoints.
     kernels_1d: Tuple[np.ndarray, ...]
     init_kernel_1d: np.ndarray
+    # Band-blocked per-octave blur operators (gaussian.banded_blocks_multi)
+    # for the padded pyramid (ops/blur.blur_tiled): per octave
+    # ((vblocks, voffs), (hblocks, hoffs)), output rows / columns
+    # ``padded_shape`` of the octave.
+    tiled_v: Tuple[tuple, ...] = ()
+    tiled_h: Tuple[tuple, ...] = ()
+    # Band-blocked init blur ((vblocks, voffs), (hblocks, hoffs)) and
+    # per-octave carry operators (None for octave 0), rows and columns
+    # rounded up to whole tiles (carry bands have slope 2: output row r
+    # reads input ~2r, which the per-tile band scan handles).
+    init_tiled: tuple = ()
+    carry_tiled: Tuple[Any, ...] = ()
+
+
+def tiled_operators(dims, chains_v, chains_h, init_v, init_h, carry):
+    """The plan's band-blocked fields from float64 operators: per-octave
+    lists of the composed layer chains (``chains_v[o][i]`` [h_o, h_o]),
+    the init blur pair and per-octave carry pairs (``carry[0]`` None).
+    Returns dict(tiled_v, tiled_h, init_tiled, carry_tiled)."""
+    tiled_v, tiled_h = [], []
+    for o, (h, w) in enumerate(dims):
+        hv, wp = padded_shape(h, w)
+        tiled_v.append(g.banded_blocks_multi(chains_v[o], BAND_TILE, HALO,
+                                             hv))
+        tiled_h.append(g.banded_blocks_multi(chains_h[o], BAND_TILE, 0, wp))
+
+    def band_pair(v64, h64):
+        rows = BAND_TILE * (-(-v64.shape[0] // BAND_TILE))
+        cols = BAND_TILE * (-(-h64.shape[0] // BAND_TILE))
+        return (g.banded_blocks_multi([v64], BAND_TILE, 0, rows),
+                g.banded_blocks_multi([h64], BAND_TILE, 0, cols))
+
+    return dict(tiled_v=tuple(tiled_v), tiled_h=tuple(tiled_h),
+                init_tiled=band_pair(init_v, init_h),
+                carry_tiled=tuple(None if c is None else band_pair(*c)
+                                  for c in carry))
 
 
 def _octave_dims(cfg: SiftConfig) -> List[Tuple[int, int]]:
@@ -170,6 +226,7 @@ def build_plan(cfg: SiftConfig) -> SiftPlan:
 
     blur_v, blur_h, down_v, down_h = [], [], [], []
     carry_v, carry_h = [], []
+    carry64 = [None]   # per-octave f64 (cv, ch) for band-blocking; o=0 none
     acc64_v, acc64_h = [], []  # float64 composed blur chains for carry fold
     for o, (h, w) in enumerate(dims):
         # Composed operators: layer i = (B_i ... B_1) @ base.  Products are
@@ -209,6 +266,7 @@ def build_plan(cfg: SiftConfig) -> SiftPlan:
             ch64 = dh.astype(np.float64) @ acc64_h[o - 1][L]
             carry_v.append(cv64.astype(np.float32))
             carry_h.append(ch64.astype(np.float32))
+            carry64.append((cv64, ch64))
         else:
             down_v.append(np.eye(h, dtype=np.float32))
             down_h.append(np.eye(w, dtype=np.float32))
@@ -230,10 +288,14 @@ def build_plan(cfg: SiftConfig) -> SiftPlan:
         g.gaussian_kernel_1d(float(s), cfg.kernel_truncate,
                              np.float32) for s in sigmas)
 
+    tiled = tiled_operators(dims, acc64_v, acc64_h,
+                            g.blur_operator(bh, init_k, np.float64),
+                            g.blur_operator(bw, init_k, np.float64),
+                            carry64)
     return SiftPlan(config=cfg, octaves=octave_plans(cfg),
                     blur_v=tuple(blur_v), blur_h=tuple(blur_h),
                     init_v=init_v, init_h=init_h, up_v=up_v, up_h=up_h,
                     down_v=tuple(down_v), down_h=tuple(down_h),
                     carry_v=tuple(carry_v), carry_h=tuple(carry_h),
                     kernels_1d=kernels_1d,
-                    init_kernel_1d=init_k.astype(np.float32))
+                    init_kernel_1d=init_k.astype(np.float32), **tiled)

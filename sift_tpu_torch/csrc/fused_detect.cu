@@ -26,10 +26,16 @@
 //
 // Bit-exact against the plain version (ops/refine_dense.record_fields,
 // ops/peaks.peak_mask): -fmad=false, IEEE divisions, rintf, the same
-// expression order.  The kernel takes each octave at its natural shape
-// [NL, h, w] with any h, w >= 1: halo coordinates are clamped to the
-// image, so the 1-px rim holds defined (by contract unused) values, and
-// the peak bit is masked to [border, size - border).
+// expression order.  The kernel takes each octave as a strided [NL, h, w]
+// view with any h, w >= 1 and unit column stride: its layer stride and
+// row pitch come from the table, so the detector's padded pyramid
+// (ops/pyramid.gaussian_pyramid_padded: content rows at [8, 8 + h) of a
+// 128-aligned [NL, Hv, Wp] stack, stored [Hv, NL, Wp]) is read in place,
+// with no repacking copy, as the TPU kernel reads it.  Halo coordinates are clamped to the
+// content, so the 1-px rim holds defined (by contract unused) values and
+// nothing outside the content is read; the peak bit is masked to
+// [border, size - border).  The record planes are written at the
+// octave's natural shape.
 #include "common.cuh"
 
 #define IMG_SCALE (1.0 / 255.0)
@@ -45,8 +51,11 @@
 #define MAX_OCTAVES 16
 
 struct OctaveEntry {
-  const float* g;  // [nl, h, w]
-  float* out;      // [3, nl - 3, h, w]
+  const float* g;     // [nl, h, w] content, element (l, y, x) at
+                      // g[l * lstride + y * pitch + x]
+  float* out;         // [3, nl - 3, h, w], contiguous
+  long long lstride;  // layer stride, in floats
+  int pitch;          // row pitch, in floats (>= w)
   int h, w, first, tiles_x;
 };
 
@@ -99,14 +108,14 @@ detect_records_kernel(const __grid_constant__ DetectParams P) {
     const int t = tid + q * BX * BY;
     const int gy = min(max(y0 - 1 + t / TW, 0), h - 1);
     const int gx = min(max(x0 - 1 + t % TW, 0), w - 1);
-    src[q] = gy * w + gx;
+    src[q] = gy * O.pitch + gx;
   }
   for (int l = 0; l < nl; ++l) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int t = tid + q * BX * BY;
       if (t < TILE)
-        cp_async4(&tile[l * TILE + t], O.g + (size_t)l * plane + src[q]);
+        cp_async4(&tile[l * TILE + t], O.g + l * O.lstride + src[q]);
     }
     cp_async_commit();
   }
@@ -221,10 +230,11 @@ detect_records_kernel(const __grid_constant__ DetectParams P) {
 #undef TAP
 }
 
-// table: n rows of 6 int64 in block order (largest octave first):
-// g [nl, h, w] f32 device pointer, out [3, nl-3, h, w] f32 device pointer,
-// h, w, first block, tiles per row (32-px wide, 8-px tall tiles);
-// ``blocks`` the total.  Launches on ``stream``, does not synchronise,
+// table: n rows of 8 int64 in block order (largest octave first):
+// g f32 device pointer to element (0, 0, 0) of the [nl, h, w] content,
+// out [3, nl-3, h, w] f32 device pointer, h, w, first block, tiles per row
+// (32-px wide, 8-px tall tiles), layer stride and row pitch of g in
+// floats; ``blocks`` the total.  Launches on ``stream``, does not synchronise,
 // allocates nothing; returns cudaGetLastError().
 SIFT_API int sift_detect_records(const long long* table, int n, int blocks,
                                  int nl, float threshold, int border,
@@ -234,13 +244,15 @@ SIFT_API int sift_detect_records(const long long* table, int n, int blocks,
   if (blocks <= 0) return 0;
   DetectParams P;
   for (int i = 0; i < n; ++i) {
-    const long long* r = table + 6 * i;
+    const long long* r = table + 8 * i;
     P.oct[i].g = (const float*)(uintptr_t)r[0];
     P.oct[i].out = (float*)(uintptr_t)r[1];
     P.oct[i].h = (int)r[2];
     P.oct[i].w = (int)r[3];
     P.oct[i].first = (int)r[4];
     P.oct[i].tiles_x = (int)r[5];
+    P.oct[i].lstride = r[6];
+    P.oct[i].pitch = (int)r[7];
   }
   P.n = n;
   P.nl = nl;

@@ -9,11 +9,18 @@ ops/refine_dense.record_fields + ops/records.pack_record_channels).  The
 wrapper ``detect_records_cuda`` launches the kernel or raises; the plain
 version serves CPU tensors and explicit ``kernel_impl="torch"`` runs.
 
-Input: a list of octaves, each ``[NL, h_o, w_o]`` f32 at its natural
-shape, any h, w >= 1, the same NL (one octave is the one-element case).
-Output: a list of ``[3, NL-3, h_o, w_o]`` f32, PLANE-major (channels
-A/B/C, then record layers 1..NL-3); the kernel's outputs are views of one
-allocation.  Reads at x+-1 / y+-1 are clamped to the image in both
+Input: a list of octaves, each an ``[NL, h_o, w_o]`` f32 tensor, any h,
+w >= 1, the same NL (one octave is the one-element case).  An octave may
+be a strided view: the kernel takes each octave's layer stride and row
+pitch and needs only a unit column stride, so the detector's padded
+pyramid (``ops/pyramid.padded_content_views`` of
+``gaussian_pyramid_padded``: content rows at [HALO, HALO + h) of an
+``[NL, Hv, Wp]`` stack whose layers interleave by row) is read in place,
+with no repacking copy, as the JAX kernel reads its padded input.
+``pad_octave_for_detect`` puts a natural-shape octave into that layout.  Output: a list of
+``[3, NL-3, h_o, w_o]`` f32, PLANE-major (channels A/B/C, then record
+layers 1..NL-3) at the natural shape; the kernel's outputs are views of
+one allocation.  Reads at x+-1 / y+-1 are clamped to the content in both
 versions; the 1-px rim is unused by contract, and the peak bit is masked
 to ``[border, size - border)``.
 """
@@ -26,6 +33,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from sift_tpu_torch.core.types import HALO, TILE_ROWS
 from sift_tpu_torch.kernels import build
 
 # Output tile of one block of the kernel (csrc/fused_detect.cu BX, BY)
@@ -78,6 +86,37 @@ def _check_octaves(octaves: Sequence[torch.Tensor]) -> None:
         raise ValueError(f"need at least 4 Gaussian layers, got {nl}")
 
 
+def pad_octave_for_detect(gauss_oct: torch.Tensor, h: int) -> torch.Tensor:
+    """``[NL, H, W]`` -> the padded layout ``[NL, nT*TILE_ROWS + 2*HALO,
+    Wp]``: HALO zero rows on top, zero rows to the tile grid + HALO below,
+    zero columns to Wp % 128 == 0 (the JAX package's
+    ``pad_octave_for_detect``).  The detector's pyramid is built in this
+    layout (rows further rounded to 128); this serves natural-shape
+    octaves."""
+    _, hh, w = gauss_oct.shape
+    nt = -(-h // TILE_ROWS)
+    wp = -(-max(w, 128) // 128) * 128
+    return torch.nn.functional.pad(
+        gauss_oct, (0, wp - w, HALO, nt * TILE_ROWS + HALO - hh))
+
+
+def octave_strides(g: torch.Tensor) -> Tuple[int, int]:
+    """(layer stride, row pitch) in floats of an octave the kernel can
+    read in place; raises unless its columns have unit stride, its row
+    pitch spans a row (layers may interleave by row, as the padded
+    pyramid's do) and fits an int, and its start is 4-byte aligned (the
+    kernel stages the tile by 4-byte ``cp.async``)."""
+    w = g.shape[2]
+    sl, sr, sc = g.stride()
+    if sc != 1 or sr < w or sl < 1 or sr >= 2 ** 31:
+        raise ValueError(f"octave {tuple(g.shape)} with strides "
+                         f"{(sl, sr, sc)}: need unit column stride and a "
+                         "row pitch of at least the width")
+    if g.data_ptr() % 4:
+        raise ValueError("octave data is not 4-byte aligned")
+    return sl, sr
+
+
 def detect_records_plain(octaves: Sequence[torch.Tensor], threshold: float,
                          border: int, edge_threshold: float,
                          contrast_threshold: float,
@@ -119,8 +158,7 @@ def detect_records_cuda(octaves: Sequence[torch.Tensor], threshold: float,
     if len(octaves) > MAX_OCTAVES:
         raise ValueError(f"at most {MAX_OCTAVES} octaves per launch, got "
                          f"{len(octaves)}")
-    if not all(g.is_contiguous() for g in octaves):
-        raise ValueError("octaves must be contiguous")
+    strides = [octave_strides(g) for g in octaves]
     nl = octaves[0].shape[0]
     rows, blocks = octave_table(tuple((g.shape[1], g.shape[2])
                                       for g in octaves))
@@ -131,11 +169,12 @@ def detect_records_cuda(octaves: Sequence[torch.Tensor], threshold: float,
         outs.append(flat[off:off + n].view(3, nl - 3, g.shape[1],
                                            g.shape[2]))
         off += n
-    table = (ctypes.c_longlong * (6 * len(rows)))()
+    table = (ctypes.c_longlong * (8 * len(rows)))()
     for i, (o, first, tx) in enumerate(rows):
         g = octaves[o]
-        table[6 * i:6 * i + 6] = [g.data_ptr(), outs[o].data_ptr(),
-                                  g.shape[1], g.shape[2], first, tx]
+        table[8 * i:8 * i + 8] = [g.data_ptr(), outs[o].data_ptr(),
+                                  g.shape[1], g.shape[2], first, tx,
+                                  *strides[o]]
     lib = build.load_library()
     et = float(edge_threshold)
     with torch.cuda.device(dev):

@@ -142,6 +142,28 @@ def detect_records_pyramid(gauss: List[torch.Tensor], cfg: SiftConfig,
             for g, r in zip(gauss, recs)]
 
 
+def detect_records_padded_pyramid(plan, gp: List[torch.Tensor],
+                                  impl: str = "auto") -> List[OctaveRecords]:
+    """Record fields of a whole padded pyramid (ops/pyramid.
+    gaussian_pyramid_padded of ``plan``) in ONE launch: the kernel reads
+    each octave's content in place through its strides."""
+    from sift_tpu_torch.ops.pyramid import padded_content_views
+    return detect_records_pyramid(padded_content_views(plan, gp),
+                                  plan.config, impl)
+
+
+def detect_records_padded(gp: torch.Tensor, h: int, w: int,
+                          cfg: SiftConfig,
+                          impl: str = "auto") -> OctaveRecords:
+    """Record field of ONE padded-layout octave ``[NL, Hv, Wp]`` (content
+    rows [HALO, HALO + h), columns [0, w)): the kernel reads the content
+    in place, the plain version takes the same view (the JAX package's
+    ``detect_records_padded``)."""
+    from sift_tpu_torch.core.types import HALO
+    return detect_records_pyramid([gp[:, HALO:HALO + h, :w]], cfg,
+                                  impl)[0]
+
+
 def detect_records(gauss_oct: torch.Tensor, cfg: SiftConfig,
                    impl: str = "auto") -> OctaveRecords:
     """Record field of one natural-shape octave [NL, h, w]: the

@@ -63,7 +63,7 @@ class Replayer:
         full_precision_matmul()
         self.cfg = config_from_params(params)
         self.plan = build_plan(self.cfg)
-        self._ops = plan_operators(self.plan, self.device)
+        self._ops = plan_operators(self.plan, self.device, "dense")
         self.inp = inputs
         self.exp = expected
 

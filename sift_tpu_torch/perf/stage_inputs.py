@@ -1,7 +1,9 @@
 """The per-keypoint kernels' inputs as the main path gives them.
 
 ``frame_slab`` rebuilds a frame's Gaussian pyramid and stacked slab with the
-ops the detector itself calls; ``frame_inputs`` the orientation and
+ops the detector itself calls: the padded band-blocked pyramid, whose
+natural-shape content views are what the record-field kernel reads in place
+and what the slab is stacked from; ``frame_inputs`` the orientation and
 descriptor kernels' arguments for the keypoints of a detection result;
 ``synthetic_inputs`` the same for ~the whole capacity of random keypoints
 whose radii span every class.  Shared by ``chip_smoke.py`` and
@@ -17,19 +19,26 @@ import torch
 
 
 def frame_slab(det, frame):
-    """(gauss, base, slab) of ``frame``: the Gaussian pyramid, the
-    single-copy stacked slab and the slab with the detector's copy count,
-    each window deep enough for the larger of the two stages' radii."""
+    """(gauss, base, slab) of ``frame``: the Gaussian pyramid as the
+    detector's record-field kernel gets it (content views
+    ``[L+3, h_o, w_o]`` of ``gaussian_pyramid_padded``: strided, row pitch
+    and layer stride those of the padded ``[L+3, Hv_o, Wp_o]`` octave),
+    the single-copy stacked slab and the slab with the detector's copy
+    count, each window deep enough for the larger of the two stages'
+    radii."""
     from sift_tpu_torch.kernels.window_gather import window_rows
     from sift_tpu_torch.ops.descriptor import max_descr_radius
     from sift_tpu_torch.ops.flatpyr import stack_pyramid
     from sift_tpu_torch.ops.orientation import max_ori_radius
-    from sift_tpu_torch.ops.pyramid import gaussian_pyramid, plan_operators
+    from sift_tpu_torch.ops.pyramid import (gaussian_pyramid_padded,
+                                            padded_content_views,
+                                            plan_operators)
     from sift_tpu_torch.pipeline.detector import slab_copies
 
     cfg = det.config
-    gauss = gaussian_pyramid(det.plan, frame, plan_operators(det.plan,
-                                                             det.device))
+    gp = gaussian_pyramid_padded(det.plan, frame,
+                                 plan_operators(det.plan, det.device))
+    gauss = padded_content_views(det.plan, gp)
     rmax = max(max_descr_radius(cfg), max_ori_radius(cfg))
     layers = dict(extra_rows=window_rows(rmax), layer_lo=1,
                   layer_hi=cfg.num_octave_layers + 1)

@@ -3,9 +3,11 @@
 Counterpart of ``sift_tpu/pipeline/detector.py`` (``build_detect_fn`` and
 ``SiftDetector``).
 
-Pipeline shape: the pyramid is a short chain of large matrix products;
-detection runs over all octaves in ONE record-field kernel launch (each
-octave at its own shape); candidates of all octaves take ONE Newton walk;
+Pipeline shape: the pyramid is a short chain of band-blocked matrix
+products that writes each octave in the padded layout, as the JAX detector
+builds it (ops/pyramid.gaussian_pyramid_padded); detection runs over all
+octaves in ONE record-field kernel launch that reads the padded octaves in
+place; every other stage takes natural-shape views of them; candidates of all octaves take ONE Newton walk;
 then keypoints of ALL octaves are compacted into ONE fixed-capacity set and
 the orientation and descriptor kernels each run once per frame over a
 row-stacked raw pyramid slab whose shifted copies one expansion kernel
@@ -48,9 +50,10 @@ from sift_tpu_torch.ops.flatpyr import (dense_gradients_packed,
                                          dense_gradients_padded, pad_pyramid,
                                          shift_copies, stack_pyramid)
 from sift_tpu_torch.ops.pyramid import (PlanOperators, dog_pyramid,
-                                        gaussian_pyramid, plan_operators)
+                                        gaussian_pyramid_padded,
+                                        padded_content_views, plan_operators)
 from sift_tpu_torch.ops.records import (WalkState, candidates_from_records,
-                                        detect_records_pyramid,
+                                        detect_records_padded_pyramid,
                                         finalize_walk,
                                         resolve_kernel_impl,
                                         walk_records_positions)
@@ -128,13 +131,18 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
     bins = torch.arange(nb, dtype=torch.int32, device=dev)
 
     def detect(image: torch.Tensor) -> SiftResult:
-        gauss = gaussian_pyramid(plan, image, ops)
+        # Padded-layout pyramid (content rows at [HALO, HALO + h)): the
+        # zero padding is rows and columns of the band-blocked operators,
+        # so the record-field kernel reads it with no repacking copy; all
+        # other consumers take natural-shape views.
+        gp = gaussian_pyramid_padded(plan, image, ops)
+        gauss = padded_content_views(plan, gp)
 
         # Dense detection: ONE kernel launch for all octaves (DoG +
         # extrema + Newton records — the DoG volume is never
         # materialised), per-octave candidate compaction (octave-major
         # order), then ONE Newton walk over all octaves' candidates.
-        recs = detect_records_pyramid(gauss, cfg, impl)
+        recs = detect_records_padded_pyramid(plan, gp, impl)
         cands = [candidates_from_records(recs[o], plan.octaves[o].cand_cap)
                  for o in range(cfg.num_octaves)]
         st, rflat = walk_records_positions(recs, cands, cfg)

@@ -197,7 +197,11 @@ others = ["sift_tpu_torch.io.image", "sift_tpu_torch.io.native",
           "sift_tpu_torch.ops.patches", "sift_tpu_torch.parallel",
           "sift_tpu_torch.parallel.batched", "sift_tpu_torch.parallel.dba",
           "sift_tpu_torch.parallel.multihost",
-          "sift_tpu_torch.tools.scale_bench"]
+          "sift_tpu_torch.tools.scale_bench",
+          "sift_tpu_torch.tools.benchmark", "sift_tpu_torch.perf.timing",
+          "sift_tpu_torch.perf.stage_bench",
+          "sift_tpu_torch.perf.kernel_bench",
+          "sift_tpu_torch.perf.mem_analysis"]
 missing = sorted(set(geometry + others) - set(names))
 assert not missing, missing
 bad = [m for m in sys.modules
