@@ -24,6 +24,7 @@ import torch
 
 
 FRAMES = 10
+PROFILE_ATTEMPTS = 3
 _OWN = ("detect_records_kernel", "expand_lane_copies_kernel",
         "orientation_hist_kernel", "descriptor_hist_kernel",
         "gather_windows_kernel")
@@ -51,19 +52,24 @@ def device_ms(fn, calls: int = 10, name: str = ""):
     """Device time of one call of ``fn``: the summed durations of the
     kernels and copies it puts on the card whose name contains ``name``
     (all of them by default), from ``torch.profiler`` over ``calls`` calls
-    (after two warm-up calls).  None if the profiler saw no such device
-    activity."""
+    (after two warm-up calls).  A profile that records no such device
+    activity is taken again, up to ``PROFILE_ATTEMPTS`` profiles in all
+    (the profiler has come back empty now and then for a kernel it saw in
+    the same process before and after); None if none of them saw any."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [r for r in device_rows(prof, calls) if name in r[0]]
-    return sum(r[1] for r in rows) if rows else None
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in device_rows(prof, calls) if name in r[0]]
+        if rows:
+            return sum(r[1] for r in rows)
+    return None
 
 
 def main(argv=None) -> int:

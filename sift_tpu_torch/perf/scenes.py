@@ -6,16 +6,20 @@ torch only (the machine with the card has no cv2), at any frame size:
     with slight yaw, optionally in front of a textured backdrop plane
     (tests/test_odometry.py:43-78);
   * ``render_loop_sequence``: the same kind of cloud seen from a path that
-    goes out and comes back (tests/test_loop_closure.py:15-46).
-Discs are filled by a distance mask (cv2.circle's filled integer circle,
-up to edge pixels); the backdrop is ``bench_image`` warped onto the plane
-by a perspective ``grid_sample`` (bilinear, reflected border).  The random
-draws are the tests' own, in their order, from the same seeds.
+    goes out and comes back (tests/test_loop_closure.py:15-46);
+  * ``render_corridor``: a forward flythrough of a long corridor, a disc
+    cloud between two textured side walls in front of a textured end wall
+    (tests/test_odometry.py:140-216, the TUM-format ATE gate's scene).
+Discs are filled by a distance mask (cv2.circle's filled integer circle);
+the backdrop is ``bench_image`` warped onto the plane by a perspective
+``grid_sample`` (bilinear, reflected border), the side walls by the same
+warp with a constant border.  The random draws are the tests' own, in
+their order, from the same seeds.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,21 +40,34 @@ def _homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
 
 
 def warp_perspective(tex: np.ndarray, hmat: np.ndarray, width: int,
-                     height: int) -> np.ndarray:
+                     height: int, border: Optional[float] = None
+                     ) -> np.ndarray:
     """cv2.warpPerspective(tex, hmat, (width, height)) with bilinear
-    sampling and a reflected border: out(x, y) = tex(hmat^-1 (x, y))."""
+    sampling: out(x, y) = tex(hmat^-1 (x, y)).  ``border=None``: a
+    reflected border (BORDER_REFLECT_101); a value: a constant border of
+    that value (BORDER_CONSTANT), computed exactly as ``tex - border``
+    sampled with zero padding, plus ``border``."""
     th, tw = tex.shape
     inv = np.linalg.inv(hmat)
     ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
     pix = np.stack([xs, ys, np.ones_like(xs)], -1) @ inv.T
-    sx = pix[..., 0] / pix[..., 2]
-    sy = pix[..., 1] / pix[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sx = pix[..., 0] / pix[..., 2]
+        sy = pix[..., 1] / pix[..., 2]
     grid = np.stack([2 * sx / (tw - 1) - 1, 2 * sy / (th - 1) - 1], -1)
+    src = torch.from_numpy(tex)[None, None].to(torch.float32)
+    if border is None:
+        mode = "reflection"
+    else:
+        # Far outside is outside: keep the horizon's huge (or infinite)
+        # coordinates finite for the sampler.
+        grid = np.clip(np.nan_to_num(grid, nan=4.0, posinf=4.0,
+                                     neginf=-4.0), -4.0, 4.0)
+        src, mode = src - border, "zeros"
     out = torch.nn.functional.grid_sample(
-        torch.from_numpy(tex)[None, None].to(torch.float32),
-        torch.from_numpy(grid)[None].to(torch.float32), mode="bilinear",
-        padding_mode="reflection", align_corners=True)
-    return out[0, 0].numpy()
+        src, torch.from_numpy(grid)[None].to(torch.float32), mode="bilinear",
+        padding_mode=mode, align_corners=True)[0, 0]
+    return (out if border is None else out + border).numpy()
 
 
 def _paint_backdrop(r, t, seed, z, ex, ey, fx, width, height, tex_cache):
@@ -67,6 +84,35 @@ def _paint_backdrop(r, t, seed, z, ex, ey, fx, width, height, tex_cache):
                    pc[:, 1] / pc[:, 2] * fx + height / 2], 1)
     src = np.array([[0, 0], [tw, 0], [tw, th], [0, th]], np.float64)
     return warp_perspective(tex, _homography(src, uv), width, height)
+
+
+def _paint_corridor_walls(img, r, t, center_z, seed, fx, width, height,
+                          tex_cache, z_far=80.0, x_half=8.0, y_half=5.0):
+    """Two value-noise textured side walls (world planes x = +-x_half,
+    z from ``center_z + 1.5`` to ``z_far``) painted over ``img``, the
+    texture anchored to the world (u ~ wall z, v ~ wall y).  Each wall is
+    warped with a constant border of -1 and copied where the warp is
+    >= 0, as the JAX test does with cv2's BORDER_CONSTANT."""
+    key = ("walls", seed)
+    tex = tex_cache.get(key)
+    if tex is None:
+        tex = tex_cache[key] = bench_image(512, 2048, seed=seed + 1)
+    th, tw = tex.shape
+    z0 = center_z + 1.5
+    u0 = z0 / z_far * tw
+    src = np.array([[u0, 0], [tw, 0], [tw, th], [u0, th]], np.float64)
+    for x_w in (-x_half, x_half):
+        quad = np.array([[x_w, -y_half, z0], [x_w, -y_half, z_far],
+                         [x_w, y_half, z_far], [x_w, y_half, z0]])
+        pc = quad @ r.T + t
+        uv = np.stack([pc[:, 0] / pc[:, 2] * fx + width / 2,
+                       pc[:, 1] / pc[:, 2] * fx + height / 2], 1)
+        # cv2.getPerspectiveTransform takes float32 points.
+        hmat = _homography(src.astype(np.float32).astype(np.float64),
+                           uv.astype(np.float32).astype(np.float64))
+        w = warp_perspective(tex, hmat, width, height, border=-1.0)
+        np.copyto(img, w, where=w >= 0)
+    return img
 
 
 def _fill_disc(img: np.ndarray, cx: int, cy: int, rad: int,
@@ -135,6 +181,41 @@ def render_sequence(n_frames: int = 8, seed: int = 5, n_pts: int = 160,
     return frames, np.stack(gt_pos), gt_poses
 
 
+def render_corridor(n_frames: int = 60, seed: int = 5, n_pts: int = 900,
+                    textured: bool = True, width: int = 320,
+                    height: int = 240, fx: float = None
+                    ) -> Tuple[List[np.ndarray], np.ndarray,
+                               List[np.ndarray]]:
+    """A forward flythrough of a long corridor: a disc cloud that keeps
+    entering the view, ``textured``: in front of a value-noise end wall
+    (z=70) between two world-anchored textured side walls.  Returns
+    (frames float32 [H, W] 0..255, gt camera centres [N, 3], cam-to-world
+    4x4 poses).  ``fx`` defaults to 0.9 * width."""
+    fx = 0.9 * width if fx is None else fx
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-8, -5, 2], [8, 5, 60], (n_pts, 3))
+    radii = rng.uniform(0.08, 0.35, n_pts)
+    vals = rng.uniform(60, 255, n_pts)
+    tex_cache = {}
+    frames, gt_pos, gt_poses = [], [], []
+    for i in range(n_frames):
+        center = np.array([0.5 * np.sin(0.1 * i), 0.02 * i, 0.45 * i])
+        r, t, pose = _pose(0.05 * np.sin(0.08 * i), center)
+        if textured:
+            img = _paint_backdrop(r, t, seed, 70.0, 42.0, 32.0, fx, width,
+                                  height, tex_cache)
+            _paint_corridor_walls(img, r, t, center[2], seed, fx, width,
+                                  height, tex_cache)
+        else:
+            img = np.zeros((height, width), np.float32)
+        _draw_cloud(img, pts, radii, vals, r, t, fx)
+        img += rng.normal(0, 3, (height, width)).astype(np.float32)
+        frames.append(np.clip(img, 0, 255).astype(np.float32))
+        gt_pos.append(center)
+        gt_poses.append(pose)
+    return frames, np.stack(gt_pos), gt_poses
+
+
 def render_loop_sequence(n: int = 12, seed: int = 9, n_pts: int = 170,
                          width: int = 320, height: int = 240,
                          fx: float = None
@@ -161,24 +242,43 @@ def render_loop_sequence(n: int = 12, seed: int = 9, n_pts: int = 170,
 
 VO_FRAMES = 12
 VO_FEATURES = 2000          # tools/odometry.py's default
+# The corridor runs as the JAX package's TUM-format CLI gate runs it
+# (tests/test_odometry.py:219-257): 60 frames at 320x240, fx = 0.9 * 320.
+CORRIDOR_FRAMES = 60
+CORRIDOR_WIDTH, CORRIDOR_HEIGHT = 320, 240
 
-# chip_smoke.py's odometry runs at the flagship size, by scene: the
-# textured out-and-forward sequence with window BA (phase ``vo``) and
-# without it (``odometry_cli``), and the out-and-back loop (``loop_closure``).
+# chip_smoke.py's odometry runs by scene: the textured out-and-forward
+# sequence at the flagship size with window BA (phase ``vo``) and without
+# it (``odometry_cli``), the out-and-back loop (``loop_closure``), and the
+# corridor through the CLI with window BA (``corridor``, the JAX test's
+# flags).  ``num_features`` is the detector's (``VO_FEATURES`` where it is
+# not given); the other keys are ``MonocularOdometry``'s.
 ODOMETRY_KW = {
     "textured": dict(ba_interval=3, ba_window=4),
     "textured_no_ba": {},
     "loop": dict(loop_closure=True, kf_interval=2, loop_min_gap=6,
                  loop_min_matches=20, loop_min_inliers=15),
+    "corridor": dict(ba_interval=5, ba_window=6, num_features=800),
 }
+
+
+def odometry_settings(name: str) -> Tuple[int, dict]:
+    """(the detector's ``num_features``, ``MonocularOdometry``'s keywords)
+    of an ``ODOMETRY_KW`` scene."""
+    kw = dict(ODOMETRY_KW[name])
+    return kw.pop("num_features", VO_FEATURES), kw
 
 
 def render_scene(name: str, width: int, height: int
                  ) -> Tuple[List[np.ndarray], np.ndarray]:
     """(frames, ground-truth centres) of an ``ODOMETRY_KW`` scene,
-    ``VO_FRAMES`` long."""
+    ``VO_FRAMES`` long (the corridor ``CORRIDOR_FRAMES``)."""
     if name == "loop":
         return render_loop_sequence(n=VO_FRAMES, width=width, height=height)
+    if name == "corridor":
+        frames, gt, _ = render_corridor(n_frames=CORRIDOR_FRAMES,
+                                        width=width, height=height)
+        return frames, gt
     frames, gt, _ = render_sequence(n_frames=VO_FRAMES, textured=True,
                                     width=width, height=height)
     return frames, gt

@@ -7,10 +7,12 @@ every stage of every iteration must run.  The clock differs: the JAX tool
 takes the slope between two trip counts, because its transport
 acknowledged dispatch before execution; that slope can come out near zero
 and was then reported as a time.  Here a CUDA tensor is timed by CUDA
-events recorded on its device's current stream around ``k`` chained steps,
-which measure the device's own span, and a CPU tensor by
+events recorded on its device's current stream around one run of the
+chained runner (``k`` folded steps and the probe step, ``k + 1`` step
+calls), which measure the device's own span, and a CPU tensor by
 ``time.perf_counter`` (the tests' branch, chosen by the tensor's device).
-A reading that is not positive and finite raises.
+The span is divided by the ``k + 1`` step calls it holds.  A reading that
+is not positive and finite raises.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ ITERATIONS = {"cuda": dict(k=24, repeats=3), "cpu": dict(k=2, repeats=1)}
 
 def chained_runner(step: Callable, k: int) -> Callable:
     """``x -> probe``: runs ``step`` ``k`` times on a carried value, then
-    once more for the probe.  ``step(x) -> (y, probe)``: ``y`` has ``x``'s
-    shape and dtype, ``probe`` is a scalar tensor that depends on every
-    stage of the step.  The fold ``y + probe * 1e-30`` makes each
+    once more for the probe: ``k + 1`` calls of ``step`` in all, which
+    ``measure_ms`` divides the span by.  ``step(x) -> (y, probe)``: ``y``
+    has ``x``'s shape and dtype, ``probe`` is a scalar tensor that depends
+    on every stage of the step.  The fold ``y + probe * 1e-30`` makes each
     iteration depend on the one before; it leaves a float32 carry
     bit-identical wherever ``|y|`` exceeds ``|probe| * 1e-23`` (a zero
     element of the carry takes the tiny fold)."""
@@ -71,7 +74,9 @@ def measure_ms(step: Callable, x: torch.Tensor, k: int = 24,
                repeats: int = 3,
                on_first_estimate: Optional[Callable] = None) -> float:
     """Median over ``repeats`` of the per-iteration ms of ``k`` chained
-    ``step``s on ``x`` (``chained_runner``), after one untimed warm-up run
+    ``step``s on ``x`` (``chained_runner``): each run's span divided by
+    the ``k + 1`` step calls it made (the ``k`` folded steps and the probe
+    step), after one untimed warm-up run
     (first use: kernel loads, allocator growth).  ``on_first_estimate``,
     if given, receives the first timed run's per-iteration ms as soon as
     it exists.  Raises ``RuntimeError`` on a reading that is not positive
@@ -82,7 +87,7 @@ def measure_ms(step: Callable, x: torch.Tensor, k: int = 24,
         torch.cuda.synchronize(x.device)
     per_iter = []
     for i in range(repeats):
-        ms = _elapsed_ms(run, x) / k
+        ms = _elapsed_ms(run, x) / (k + 1)
         if not (math.isfinite(ms) and ms > 0.0):
             raise RuntimeError(f"measure_ms: reading {ms!r} ms per "
                                f"iteration on {x.device} is not positive "

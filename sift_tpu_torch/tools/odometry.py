@@ -1,16 +1,18 @@
 """CLI: monocular visual odometry over an image sequence.
 
 Counterpart of ``sift_tpu/tools/odometry.py`` (same arguments, plus
-``--device``): detect+compute on the GPU, device matching, vectorized
-RANSAC, PnP tracking, optional windowed BA and loop closure; writes the
-estimated trajectory in TUM or KITTI format.  With --gt, reports ATE/RPE
-against a ground-truth trajectory file.  A directory of PGM/PPM frames
-decodes through the native loader; other formats need cv2.
+``--device`` and ``--seed``): detect+compute on the GPU, device
+matching, vectorized RANSAC, PnP tracking, optional windowed BA and loop
+closure; writes the estimated trajectory in TUM or KITTI format.  With
+--gt, reports ATE/RPE against a ground-truth trajectory file.  A
+directory of PGM/PPM frames decodes through the native loader; other
+formats need cv2.
 
 Usage:
   python -m sift_tpu_torch.tools.odometry DIR --fx F [--fy F --cx X --cy Y]
       [--out traj.txt] [--format tum|kitti] [--gt groundtruth.txt]
-      [--ba-interval 5] [--num-features 2000] [--device cuda|cpu]
+      [--ba-interval 5] [--num-features 2000] [--seed 0]
+      [--device cuda|cpu]
 Without --device the GPU is used, and the tool raises if there is none.
 """
 
@@ -38,6 +40,9 @@ def main(argv=None):
     p.add_argument("--loop-min-gap", type=int, default=8)
     p.add_argument("--loop-min-matches", type=int, default=25)
     p.add_argument("--num-features", type=int, default=2000)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the bootstrap's RANSAC draws (the JAX "
+                        "tool draws from key 0)")
     p.add_argument("--telemetry", default=None,
                    help="write per-frame JSONL telemetry to this path")
     p.add_argument("--checkpoint", default=None,
@@ -80,7 +85,7 @@ def main(argv=None):
         loop_min_matches=args.loop_min_matches,
         loop_min_inliers=max(10, args.loop_min_matches * 3 // 4),
         telemetry=Telemetry() if args.telemetry else None,
-        device=args.device)
+        seed=args.seed, device=args.device)
     if args.resume:
         odo.load_state(args.resume)
         done = len(odo.result.rotations)

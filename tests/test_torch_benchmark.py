@@ -59,6 +59,47 @@ def test_measure_ms_on_a_cpu_tensor():
     assert len(first) == 1 and first[0] > 0
 
 
+@pytest.mark.parametrize("k", [1, 2, 24])
+def test_chained_runner_calls_the_step_k_plus_one_times(k):
+    """``run`` makes ``k`` folded step calls and one probe call: the
+    ``k + 1`` calls that ``measure_ms`` divides the span by."""
+    calls = []
+
+    def step(c):
+        calls.append(1)
+        return c, c.sum()
+
+    timing.chained_runner(step, k)(torch.ones(3))
+    assert len(calls) == k + 1
+
+
+class _StepClock:
+    """A host clock that advances exactly ``ms_per_step`` at each call of
+    ``step``: the span of a run is the step calls it made times that."""
+
+    def __init__(self, ms_per_step):
+        self.ms_per_step = ms_per_step
+        self.now = 100.0
+
+    def perf_counter(self):
+        return self.now
+
+    def step(self, c):
+        self.now += self.ms_per_step * 1e-3
+        return c, c.sum()
+
+
+@pytest.mark.parametrize("k", [2, 24])
+def test_measure_ms_reads_one_step_per_step_call(monkeypatch, k):
+    """With a clock that moves 10 ms per step call, the reading is 10 ms
+    per step at any ``k`` (to float rounding): the span of ``k + 1`` calls
+    over ``k + 1``.  Dividing by ``k`` read 15 ms at k=2."""
+    clock = _StepClock(10.0)
+    monkeypatch.setattr(timing, "time", clock)
+    ms = timing.measure_ms(clock.step, torch.ones(4), k=k, repeats=3)
+    assert ms == pytest.approx(10.0, rel=1e-9)
+
+
 class _Clock:
     """A host clock that returns the given readings in turn."""
 

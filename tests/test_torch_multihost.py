@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.dirname(os.path.abspath(__file__)),
+                os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
 from torch_multihost_worker import det_frames, finish, spawn  # noqa: E402
 
 import sift_tpu  # noqa: E402
@@ -55,30 +56,89 @@ def url(tmp_path, name):
 
 SIZES = {"64x64": (64, 64, 128),
          "752x480": (752, 480, 512)}
+# jax_pipeline_check's limits by size: descriptors (uint8 steps) and the
+# share of valid queries whose match may flip across the ratio test.
+CHECK_LIMITS = {"64x64": dict(desc_atol=1, flip_share=0.0),
+                "752x480": dict(desc_atol=3, flip_share=0.01)}
 
 
-def jax_pipeline_check(frames, w, h, nf, res, matches):
+def single_process_reference(w, h, nf):
+    """The port's 4-shard pipeline in one process on the CPU over the
+    workers' 8 frames: (frames, result, matches, mesh)."""
+    cfg = SiftConfig(width=w, height=h, num_features=nf)
+    mesh = make_mesh(4, device="cpu")
+    fn, shard = make_sharded_pipeline(build_plan(cfg), mesh)
+    frames = det_frames(8, h, w)
+    res, matches = fn(shard(frames)).gather()
+    return frames, res, matches, mesh
+
+
+def jax_pipeline_gaps(frames, w, h, nf, res, matches):
     """The single-process reference against the JAX package's 4-device
-    mesh, at tests/test_parallel.py's size and with
-    tests/test_torch_parallel.py's tolerances: counts and matches equal,
-    x within 1e-4, descriptors within 1.  (At 752x480 the two packages'
-    x differ by up to 16 float32 steps on a few keypoints, more than
-    1e-4 px, so the check stays at this size.)"""
+    ``make_sharded_pipeline`` on the same frames: whether the counts are
+    equal, the largest x and descriptor differences, the valid queries
+    and the queries whose match differs, whether each of those is a flip
+    across the ratio test (matched on one side, -1 on the other) on a
+    query whose descriptor row differs, and whether the port's matcher on
+    the JAX package's descriptors gives the JAX package's matches."""
+    from sift_tpu_torch.parallel.batched import sequential_match
+
     jfn, jshard = jpar.make_sharded_pipeline(
         sift_tpu.build_plan(sift_tpu.SiftConfig(width=w, height=h,
                                                 num_features=nf)),
         jpar.make_mesh(4))
     jres, jm = jax.block_until_ready(jfn(jshard(frames)))
-    count = res.count.numpy()
-    np.testing.assert_array_equal(count, np.asarray(jres.count))
+    count, jcount = res.count.numpy(), np.asarray(jres.count)
     d = res.descriptors.numpy().astype(np.int32)
     jd = np.asarray(jres.descriptors).astype(np.int32)
-    for b, n in enumerate(count):
-        np.testing.assert_allclose(res.keypoints.x[b, :n].numpy(),
-                                   np.asarray(jres.keypoints.x)[b, :n],
-                                   atol=1e-4, rtol=0)
-        assert np.abs(d[b, :n] - jd[b, :n]).max(initial=0) <= 1
-    np.testing.assert_array_equal(matches.numpy(), np.asarray(jm))
+    x, jx = res.keypoints.x.numpy(), np.asarray(jres.keypoints.x)
+    n = np.minimum(count, jcount)
+    m, jm = matches.numpy(), np.asarray(jm)
+    differ = np.argwhere(m != jm)
+    on_jax = sequential_match(
+        torch.from_numpy(np.array(jres.descriptors)),
+        torch.from_numpy(np.array(jres.keypoints.valid)),
+        ratio=SiftConfig(width=w, height=h).match_ratio).numpy()
+    return {
+        "counts_equal": bool(np.array_equal(count, jcount)),
+        "max_dx": max(float(np.abs(x[b, :k] - jx[b, :k]).max(initial=0))
+                      for b, k in enumerate(n)),
+        "max_desc_diff": max(int(np.abs(d[b, :k] - jd[b, :k]).max(
+            initial=0)) for b, k in enumerate(n)),
+        "valid_queries": int(count[1:].sum()),
+        "matches_differing": len(differ),
+        "flips_only": all(min(m[b, q], jm[b, q]) == -1 for b, q in differ),
+        "differing_have_desc_diff": all((d[b, q] != jd[b, q]).any()
+                                        for b, q in differ),
+        "matcher_on_jax_descriptors_equal": bool(np.array_equal(on_jax,
+                                                                jm))}
+
+
+def jax_pipeline_check(frames, w, h, nf, res, matches, desc_atol,
+                       flip_share):
+    """``jax_pipeline_gaps`` held with tests/test_torch_parallel.py's
+    tolerances: counts equal, x within 1e-4 (measured on the 8 frames at
+    752x480: 9.5e-7, 1 float32 step, on one keypoint; 0 elsewhere),
+    descriptors within ``desc_atol``.
+
+    On the CPU the JAX package runs its flat descriptor path, which misses
+    its own fused path by up to 3 at 752x480 (ROADMAP C5); the port
+    follows the fused path.  So at 752x480 descriptors are held within 3
+    (measured: 3 on one frame, 2 on the others), at 64x64 within 1.
+    Matches: the port's matcher on the JAX package's descriptors gives the
+    JAX package's matches exactly, so a query whose match differs differs
+    through the descriptors.  Each such query must be a flip across the
+    ratio test (never two targets) with a descriptor row that differs,
+    and at most ``flip_share`` of the valid queries may flip (measured at
+    752x480: 25 of 3517, 0.71 %; at 64x64 none).  The measured values:
+    ``python tests/test_torch_multihost.py 752x480``."""
+    g = jax_pipeline_gaps(frames, w, h, nf, res, matches)
+    assert g["counts_equal"], g
+    assert g["max_dx"] <= 1e-4, g
+    assert g["max_desc_diff"] <= desc_atol, g
+    assert g["matcher_on_jax_descriptors_equal"], g
+    assert g["flips_only"] and g["differing_have_desc_diff"], g
+    assert g["matches_differing"] <= flip_share * g["valid_queries"], g
 
 
 @pytest.mark.parametrize("size", [
@@ -97,14 +157,8 @@ def test_two_process_cluster_matches_single_process(tmp_path, size):
         assert not any(counts["launches"].values())   # CPU: plain versions
         assert set(counts["plain_calls"].values()) == {4}
 
-    cfg = SiftConfig(width=w, height=h, num_features=nf)
-    mesh = make_mesh(4, device="cpu")
-    fn, shard = make_sharded_pipeline(build_plan(cfg), mesh)
-    frames = det_frames(8, h, w)
-    res, matches = fn(shard(frames)).gather()
-
-    if size == "64x64":
-        jax_pipeline_check(frames, w, h, nf, res, matches)
+    frames, res, matches, mesh = single_process_reference(w, h, nf)
+    jax_pipeline_check(frames, w, h, nf, res, matches, **CHECK_LIMITS[size])
 
     assert int(np.sum(got["count"])) > 0
     np.testing.assert_array_equal(got["count"], res.count.numpy())
@@ -217,3 +271,15 @@ def test_initialize_needs_cuda_unless_asked_for_gloo():
         multihost.initialize("file:///nonexistent", 1, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         multihost.global_mesh()
+
+
+if __name__ == "__main__":
+    # The measured gaps behind CHECK_LIMITS, one JSON line per size given
+    # (default 752x480): python tests/test_torch_multihost.py [64x64 ...]
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_num_cpu_devices", 8)
+    for size in sys.argv[1:] or ["752x480"]:
+        w, h, nf = SIZES[size]
+        frames, res, matches, _ = single_process_reference(w, h, nf)
+        print(json.dumps({"size": size, **jax_pipeline_gaps(
+            frames, w, h, nf, res, matches)}), flush=True)

@@ -415,6 +415,23 @@ def test_odometry_cli(sequence, tmp_path, monkeypatch, capsys):
             cli.main([str(d), "--fx", str(FX)])
 
 
+def test_odometry_cli_seed(sequence, tmp_path, monkeypatch, capsys):
+    """``--seed`` seeds the odometry's RANSAC generator (0 by default, as
+    the JAX tool draws from key 0); the detector is stubbed."""
+    from sift_tpu_torch.tools import odometry as cli
+
+    frames, _ = sequence
+    d, _ = pgm_dir(tmp_path, 3)
+    monkeypatch.setattr(todo, "SiftDetector", _CallOrderDetector)
+    for argv, seed in (([], 0), (["--seed", "7"], 7)):
+        monkeypatch.setattr(_CallOrderDetector, "results", [
+            convert.sift_result_from_numpy(f) for f in frames[:3]])
+        odo = cli.main([str(d), "--fx", str(FX), "--num-features", str(CAP),
+                        "--device", "cpu", *argv])
+        assert odo._gen.initial_seed() == seed
+    capsys.readouterr()
+
+
 def test_reconstruct_cli(sequence, tmp_path, monkeypatch, capsys):
     """tools/reconstruct.py on three PGM frames, the detector stubbed:
     the BA line tests/test_reconstruct.py parses, and its gates."""
@@ -486,3 +503,88 @@ def test_scenes_render_as_the_jax_tests_do():
     got = scenes.warp_perspective(tex, m, W, H)
     assert np.abs(got - want).mean() < 0.05
     assert np.percentile(np.abs(got - want), 99) < 1.0
+
+
+def test_corridor_renders_as_the_jax_test_does():
+    """perf/scenes.render_corridor draws tests/test_odometry.py's corridor:
+    untextured pixel for pixel, with the same ground truth; the side
+    walls' constant-border warp as cv2.warpPerspective with
+    BORDER_CONSTANT at -1 (its >= 0 mask, which decides where a wall is
+    painted, differs on under 0.5 % of the pixels); and the textured
+    corridor within the backdrop warp's limits.  Textured frames are not
+    bit-equal: ``bench_image`` differs across the packages (torch
+    bicubic, not cv2), and so does the bilinear warp's rounding."""
+    import cv2
+
+    from sift_tpu_torch.perf import scenes
+    from tests.test_odometry import render_corridor
+
+    a, ga, pa = render_corridor(n_frames=3, textured=False)
+    b, gb, pb = scenes.render_corridor(n_frames=3, textured=False)
+    for x, y in zip(a + pa, b + pb):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(ga, gb)
+
+    rng = np.random.default_rng(0)
+    tex = rng.uniform(0, 255, (64, 96)).astype(np.float32)
+    src = np.float32([[0, 0], [96, 0], [96, 64], [0, 64]])
+    for dst in (np.float32([[10, 5], [300, 20], [280, 230], [20, 200]]),
+                np.float32([[-40, -30], [250, 20], [360, 260],
+                            [-10, 200]])):
+        m = cv2.getPerspectiveTransform(src, dst)
+        want = cv2.warpPerspective(tex, m, (W, H), flags=cv2.INTER_LINEAR,
+                                   borderMode=cv2.BORDER_CONSTANT,
+                                   borderValue=-1.0)
+        got = scenes.warp_perspective(tex, m, W, H, border=-1.0)
+        assert np.abs(got - want).mean() < 0.05
+        assert np.percentile(np.abs(got - want), 99) < 1.0
+        assert ((got >= 0) != (want >= 0)).mean() < 0.005
+
+    a, ga, pa = render_corridor(n_frames=3)
+    b, gb, pb = scenes.render_corridor(n_frames=3)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape == (H, W)
+        assert np.abs(x - y).mean() < 0.05
+        assert np.percentile(np.abs(x - y), 99) < 1.0
+    np.testing.assert_array_equal(ga, gb)
+    for x, y in zip(pa, pb):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.slow
+def test_corridor_through_the_cli(tmp_path, capsys):
+    """The 60-frame textured corridor as tests/test_odometry.py's TUM gate
+    runs it, through the port's CLI on the CPU: PGM frames through the
+    native loader, a TUM ground truth, window BA every 5 frames over 6,
+    800 features.  ATE < 0.6 (the JAX test's gate), 60 poses read back,
+    the ATE recomputed from the file within the print's round-off."""
+    from sift_tpu_torch.geometry import trajectory as T
+    from sift_tpu_torch.io import native
+    from sift_tpu_torch.perf import scenes
+    from sift_tpu_torch.tools import odometry as cli
+
+    if not native.available():
+        pytest.fail(f"native loader: {native.build_error()}")
+    frames, gt_pos, gt_poses = scenes.render_corridor()
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    for i, f in enumerate(frames):
+        scenes.write_pgm(str(seq / f"frame_{i:04d}.pgm"), f)
+    gt_file, out_file = tmp_path / "gt.tum", tmp_path / "est.tum"
+    T.write_tum_trajectory(str(gt_file), np.arange(60, dtype=float),
+                           gt_poses)
+    odo = cli.main([str(seq), "--fx", str(FX), "--num-features", "800",
+                    "--ba-interval", "5", "--ba-window", "6",
+                    "--out", str(out_file), "--gt", str(gt_file),
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    m = re.search(r"ATE \(Sim3-aligned RMSE\): ([0-9.]+)", out)
+    assert m, out
+    ate = float(m.group(1))
+    assert ate < 0.6, out
+    assert odo.result.modes[1] == "bootstrap"
+    assert all(md == "pnp" for md in odo.result.modes[2:]), odo.result.modes
+    _, est = T.read_tum_trajectory(str(out_file))
+    assert len(est) == 60
+    est_p = np.stack([p[:3, 3] for p in est])
+    assert abs(ate_rmse(est_p, gt_pos, with_scale=True) - ate) < 6e-5
