@@ -28,7 +28,9 @@ measuring tools (``tools/benchmark.py``, ``perf/stage_bench.py``,
 defaults, and the 60-frame textured corridor at 320x240 through
 ``tools/odometry.py`` with window BA (the JAX package's TUM-format ATE
 gate), with the frame kernels held at its shapes and its ATE over four
-RANSAC seeds.  Every hand-written CUDA kernel is held against its
+RANSAC seeds, and the JAX package's largest documented configuration,
+3840x2160 with ``num_features=10000``, through the detector, the matcher
+and the measuring tools.  Every hand-written CUDA kernel is held against its
 plain PyTorch version on the card, at the shapes its path gives it, and
 each path's launch counters are set to 0 just before it runs and read
 just after.  Phases (one JSON line each): ``device``, ``build``,
@@ -38,8 +40,8 @@ just after.  Phases (one JSON line each): ``device``, ``build``,
 ``cv2_parity``, ``tiers``, ``conv_pyramid``, ``detect_cli``,
 ``extract_and_match_cli``, ``sharded``, ``scale_bench``,
 ``distributed_ba``, ``reconstruct_distributed``, ``multihost``,
-``banded_pyramid``, ``tools``, ``corridor_capacity``, ``corridor``, then
-the ``kernels`` line; any failure exits non-zero.
+``banded_pyramid``, ``tools``, ``corridor_capacity``, ``corridor``,
+``scale_point``, then the ``kernels`` line; any failure exits non-zero.
 Needs one CUDA device, ``nvcc``, a C++ compiler (the native PGM loader)
 and the checkout's ``tests/data/cv2_parity_oracle.npz``; imports
 ``sift_tpu_torch``, ``torch`` and ``numpy`` only.  The
@@ -50,7 +52,10 @@ last line of standard output is
 Roofline figures: ``bound_ms`` is the larger of bytes / 3.35 TB/s (each
 input byte the run's data needs read once, each output byte written once)
 and float32 operations / 67 TFLOP/s (H100 SXM data sheet), both counted
-from this run's inputs — live keypoints and their actual radii.
+from this run's inputs — live keypoints and their actual radii.  Beside
+the profiler's ``device_ms`` each frame kernel reports ``graph_ms``: CUDA
+events around replays of a CUDA graph of ten launches, which needs no
+profiler.
 """
 
 from __future__ import annotations
@@ -108,6 +113,37 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 5):
+    """Device ms of one call of ``fn``: CUDA events around replays of a
+    CUDA graph that holds ``calls`` back-to-back calls, median over
+    ``replays``.  Nothing is issued by the host inside the graph, so a
+    call shorter than its host issue time reads as the card's own time
+    (the kernel plus the graph's gap between launches).  Returns (ms,
+    None), or (None, the error) where ``fn`` cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, str(e)[:200]
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(replays):
+        _, ms = events_ms(graph.replay)
+        out.append(ms / calls)
+    del graph
+    return statistics.median(out), None
 
 
 def warp_image(img: np.ndarray) -> np.ndarray:
@@ -191,6 +227,7 @@ def check_detect(gauss, cfg):
 
     ms = time_ms(run_kernel)
     ms0 = time_ms(run_octave0)
+    graph, graph_err = graph_ms(run_kernel)
     plain_ms = time_ms(lambda: FD.detect_records_plain(gauss, *args),
                        reps=20, warm=2)
     nl = gauss[0].shape[0]
@@ -211,6 +248,7 @@ def check_detect(gauss, cfg):
                    a_mismatch=tot["a"], b_mismatch=tot["b"],
                    c_mismatch=tot["c"], bit_exact_incl_rim=all(exact),
                    bit_exact_per_octave=exact, ms_octave0=ms0,
+                   graph_ms=graph, graph_error=graph_err,
                    device_ms=device_ms(run_kernel,
                                        name="detect_records_kernel"),
                    device_ms_octave0=device_ms(
@@ -232,13 +270,16 @@ def check_expand(base, copies):
     plain_ms = time_ms(lambda: EX.expand_lane_copies_plain(base, copies))
     dev_ms = device_ms(lambda: EX.expand_lane_copies_cuda(base, copies),
                        name="expand_lane_copies_kernel")
+    graph, graph_err = graph_ms(lambda: EX.expand_lane_copies_cuda(base,
+                                                                   copies))
     return finish_entry(
         name="expand_lane_copies", source="sift_tpu_torch/csrc/expand.cu",
         replaces="sift_tpu/kernels/expand.py:39",
         shapes=dict(base=list(base.shape), copies=copies),
         max_abs_err=err, tolerance="bit-exact", passed=exact, ms=ms,
         plain_ms=plain_ms, bytes_=(1 + copies) * base.numel() * 4, ops=0,
-        extra=dict(bit_exact=exact, device_ms=dev_ms))
+        extra=dict(bit_exact=exact, device_ms=dev_ms, graph_ms=graph,
+                   graph_error=graph_err))
 
 
 def finish_entry(*, name, source, replaces, shapes, max_abs_err, tolerance,
@@ -350,6 +391,8 @@ def check_orientation(tap, label):
     ms = time_ms(lambda: FS.orientation_hist_cuda(*a, count=tap["count"]))
     dev_ms = device_ms(lambda: FS.orientation_hist_cuda(
         *a, count=tap["count"]), name="orientation_hist_kernel")
+    graph, graph_err = graph_ms(lambda: FS.orientation_hist_cuda(
+        *a, count=tap["count"]))
     plain_ms = time_ms(
         lambda: FS.orientation_hist_plain(*a, count=tap["count"]),
         reps=20, warm=2)
@@ -372,7 +415,7 @@ def check_orientation(tap, label):
                    bit_reproducible=reproducible,
                    start_count_subrange_ok=subrange,
                    max_rel_err_beyond_window=rel_big, geometry=geom,
-                   device_ms=dev_ms))
+                   device_ms=dev_ms, graph_ms=graph, graph_error=graph_err))
 
 
 def check_descriptor(tap, label, radius_classes=False):
@@ -427,6 +470,8 @@ def check_descriptor(tap, label, radius_classes=False):
     ms = time_ms(lambda: FS.descriptor_hist_cuda(*a, count=tap["count"]))
     extra["device_ms"] = device_ms(lambda: FS.descriptor_hist_cuda(
         *a, count=tap["count"]), name="descriptor_hist_kernel")
+    extra["graph_ms"], extra["graph_error"] = graph_ms(
+        lambda: FS.descriptor_hist_cuda(*a, count=tap["count"]))
     plain_ms = time_ms(
         lambda: FS.descriptor_hist_plain(*a, count=tap["count"]),
         reps=20, warm=2)
@@ -805,6 +850,27 @@ def frame_launches(FD, EX, FS, n_frames, label):
     return counts
 
 
+def result_faults(r, num_features) -> list:
+    """What is wrong with a detector result on the card: CUDA tensors,
+    ``[num_features, 128]`` uint8 descriptors, none all-zero up to the
+    count, every row past the count empty, every keypoint field finite."""
+    n = int(r.count)
+    bad = []
+    if not (r.descriptors.is_cuda and r.keypoints.x.is_cuda):
+        bad.append("results are not CUDA tensors")
+    if r.descriptors.dtype != torch.uint8 \
+            or tuple(r.descriptors.shape) != (num_features, 128):
+        bad.append("descriptors are not [num_features, 128] uint8")
+    if not bool((r.descriptors[:n].sum(1) > 0).all()):
+        bad.append("a valid keypoint has an all-zero descriptor")
+    if bool(r.descriptors[n:].any()) or bool(r.keypoints.valid[n:].any()):
+        bad.append("rows past the count are not empty")
+    for f in ("x", "y", "size", "angle", "response"):
+        if not bool(torch.isfinite(getattr(r.keypoints, f)).all()):
+            bad.append(f"non-finite keypoint field {f}")
+    return bad
+
+
 def plain_path_pairing(det, frame, res, label):
     """``res``, the kernels' result on ``frame``, against the same frame
     through the plain versions on the card (``kernel_impl="torch"``): at
@@ -833,12 +899,13 @@ def plain_path_pairing(det, frame, res, label):
     return paired, dd, det_plain
 
 
-def check_matcher_exact(r1, r2, match_brute_force):
+def check_matcher_exact(r1, r2, match_brute_force, emit=True):
     """C1: the CUDA matcher's indices on the smoke pair equal the exact
     float32 ones — the same tensors matched on the CPU — and both routes
     of its Gram product (f32 operands; bf16 operands on the tensor cores
     with an f32 result) equal the float64 product.  Reports how many rows
-    the pre-repair route (a bf16 RESULT) gets wrong on the same pair."""
+    the pre-repair route (a bf16 RESULT) gets wrong on the same pair.
+    ``emit``: print the line as the ``matcher_exact`` phase."""
     from sift_tpu_torch.pipeline import matcher as M
 
     args = (r2.descriptors, r1.descriptors, r2.keypoints.valid,
@@ -873,7 +940,8 @@ def check_matcher_exact(r1, r2, match_brute_force):
             (old_gram(q, t).double() - exact).abs().max()),
         "match_ms": time_ms(lambda: match_brute_force(*args)),
     }
-    say(line)
+    if emit:
+        say(line)
     if not (line["equal_to_cpu"] and line["gram_f32_exact"]
             and line["gram_tensor_cores_exact"]):
         fail("matcher_exact: the CUDA matcher is not exact")
@@ -2436,6 +2504,7 @@ def run_corridor(FD, EX, FS, smi):
     line["kernels_held"] = {k: e["passed"] for k, e in kernels.items()}
     line["k1_bit_exact_on_padded"] = k1["bit_exact_incl_rim"]
     line["device_ms"] = {k: e["device_ms"] for k, e in kernels.items()}
+    line["graph_ms"] = {k: e["graph_ms"] for k, e in kernels.items()}
     line["bound_ms"] = {k: e["bound_ms"] for k, e in kernels.items()}
 
     # The spread over RANSAC draws, on the frames the CLI read.
@@ -2467,6 +2536,179 @@ def run_corridor(FD, EX, FS, smi):
         fail(f"corridor: kernels disagree with their plain versions at "
              f"this path's shapes: {failed}")
     return kernels, run["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The twelfth slice: the JAX package's 3840x2160 / 10000-feature scale point
+# ---------------------------------------------------------------------------
+
+# doc/performance.md:57, reached through the JAX tool's flags
+# (sift_tpu/tools/benchmark.py --sizes 3840x2160 --num-features 10000).
+SCALE_WIDTH, SCALE_HEIGHT, SCALE_FEATURES = 3840, 2160, 10000
+SCALE_OCTAVES = 11          # core/types.build_plan at this size
+# The JAX document's keypoint count on its own bench_image, which is not
+# bit-equal to the port's (cv2 bicubic against torch's): reported, not held.
+JAX_DOC_KEYPOINTS = 6166
+SCALE_PROFILE_FRAMES = 5
+
+
+def run_scale_point(FD, EX, FS, smi):
+    """The JAX package's largest documented configuration on the card:
+    ``SiftDetector`` at 3840x2160 with ``num_features=10000`` (11 octaves,
+    2 slab copies, a walk of 20000 rows) on ``bench_image`` and its warped
+    copy, then ``match_brute_force`` at 10000 x 10000.  Gates: each frame
+    kernel launched once a frame and no plain version run, both results
+    sound (``result_faults``) with a count above 0 and below the capacity,
+    the four kernels held against their plain versions on frame 1's own
+    inputs (K1 on the 11 padded octaves and K5 bit for bit, K2 / K3 as
+    the detector passed them), frame 1 paired with the plain path, and
+    ``matcher_exact`` on the pair.  Reports ``frame_ms`` (CUDA events,
+    median of 20), ``frame_wall_ms``, the device's busy and idle share
+    (``perf/profile.frame_profile``), ``tools.benchmark --sizes 3840x2160
+    --num-features 10000`` (a subprocess) and ``perf.mem_analysis`` at
+    this size.  Returns the K1 / K5 / K2 / K3 entries at these shapes and
+    the frame pair's launches."""
+    from sift_tpu_torch import SiftConfig, SiftDetector, match_brute_force
+    from sift_tpu_torch.perf import mem_analysis
+    from sift_tpu_torch.perf.benchimg import bench_image
+    from sift_tpu_torch.perf.profile import frame_profile
+    from sift_tpu_torch.perf.stage_inputs import frame_slab
+    from sift_tpu_torch.pipeline.detector import slab_copies
+
+    t_phase = time.perf_counter()
+    w, h, nf = SCALE_WIDTH, SCALE_HEIGHT, SCALE_FEATURES
+    size = f"{w}x{h}"
+    cfg = SiftConfig(width=w, height=h, num_features=nf)
+    det = SiftDetector(cfg)
+    det.warm_up()
+    img1 = bench_image(h, w, seed=0)
+    f1 = torch.as_tensor(img1, device=det.device)
+    f2 = torch.as_tensor(warp_image(img1), device=det.device)
+    torch.cuda.synchronize()
+    zero_counters(FD, EX, FS)
+    r1, r2 = [det.detect_and_compute(f) for f in (f1, f2)]
+    matches = match_brute_force(r2.descriptors, r1.descriptors,
+                                r2.keypoints.valid, r1.keypoints.valid)
+    torch.cuda.synchronize()
+    launches = frame_launches(FD, EX, FS, 2, "scale_point")
+    n1, n2 = int(r1.count), int(r2.count)
+    n_match = int((matches >= 0).sum())
+    plan = det.plan
+    line = {"phase": "scale_point", "card": smi, "width": w, "height": h,
+            "num_features": nf, "octaves": len(plan.octaves),
+            "octave_shapes": [[op.height, op.width] for op in plan.octaves],
+            "slab_copies": slab_copies(plan),
+            "walk_rows": 2 * nf,    # ops/records.walk_records_positions
+            "keypoints": [n1, n2],
+            "raw_keypoints": [int(r1.raw_count), int(r2.raw_count)],
+            "jax_doc_keypoints": JAX_DOC_KEYPOINTS, "matched": n_match,
+            "match_rate": n_match / max(n2, 1), "launches": launches}
+    bad = []
+    if len(plan.octaves) != SCALE_OCTAVES:
+        bad.append(f"{len(plan.octaves)} octaves, not {SCALE_OCTAVES}")
+    for r, n in ((r1, n1), (r2, n2)):
+        bad += result_faults(r, nf)
+        if not 0 < n < nf:
+            bad.append(f"{n} keypoints (capacity {nf})")
+    if bad:
+        say(line)
+        fail("scale_point: " + "; ".join(bad))
+
+    # The four frame kernels at this frame's shapes, each against its plain
+    # version on the card: K1 / K5 on the rebuilt pyramid and slab, K2 / K3
+    # on the arguments the detector itself passed on frame 1.
+    gauss, base, slab = frame_slab(det, f1)
+    k1 = check_detect(gauss, cfg)
+    k5 = check_expand(base, slab.copies)
+    del gauss, base, slab
+    _, ori, desc = tap_stage_inputs(det, f1)
+    k2 = check_orientation(ori, "scale_point_frame")
+    k3 = check_descriptor(desc, "scale_point_frame")
+    del ori, desc
+    for e in (k1, k5):
+        e["inputs"] = "scale_point_frame"
+    kernels = {e["name"]: e for e in (k1, k5, k2, k3)}
+    paired, dd, _ = plain_path_pairing(det, f1, r1, "scale_point")
+    mx = check_matcher_exact(r1, r2, match_brute_force, emit=False)
+    line.update(
+        paired_with_plain_path=paired,
+        max_descriptor_diff_vs_plain_path=dd,
+        kernels_held={k: e["passed"] for k, e in kernels.items()},
+        k1_bit_exact_on_padded=k1["bit_exact_incl_rim"],
+        k5_bit_exact=k5["bit_exact"],
+        k2_max_rel_err=k2["max_rel_err"], k3_max_u8_diff=k3["max_u8_diff"],
+        kernel_rows=[int(k2["shapes"]["capacity"]),
+                     int(k3["shapes"]["capacity"])],
+        device_ms={k: e["device_ms"] for k, e in kernels.items()},
+        graph_ms={k: e["graph_ms"] for k, e in kernels.items()},
+        kernel_ms={k: e["ms"] for k, e in kernels.items()},
+        bound_ms={k: e["bound_ms"] for k, e in kernels.items()},
+        bound_by={k: e["bound_by"] for k, e in kernels.items()},
+        plain_ms={k: e["plain_ms"] for k, e in kernels.items()},
+        matcher_exact={k: mx[k] for k in (
+            "queries", "matched", "equal_to_cpu", "gram_f32_exact",
+            "gram_tensor_cores_exact", "rows_differing_before_repair",
+            "match_ms")})
+
+    # What a user of this size sees: the frame's time on the card and on
+    # the host clock, where the device time goes, the tools' lines.
+    line["frame_ms"] = time_ms(lambda: det.detect_and_compute(f1))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        det.detect_and_compute(f1)
+    torch.cuda.synchronize()
+    line["frame_wall_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    prof = frame_profile(det, f1, SCALE_PROFILE_FRAMES)
+    line["profile"] = {k: prof[k] for k in (
+        "frame_wall_ms", "device_busy_ms_per_frame", "device_idle_share",
+        "device_kernels_per_frame", "device_time_measured",
+        "gemm_ms_per_frame", "own_kernels")}
+    line["profile"]["top_kernels"] = prof["top_kernels"][:8]
+    del det, r1, r2, f1, f2, matches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "sift_tpu_torch.tools.benchmark",
+           "--sizes", size, "--num-features", str(nf)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    line["benchmark_seconds"] = time.perf_counter() - t0
+    line["benchmark_cmd"] = " ".join(cmd[1:])
+    if proc.returncode != 0:
+        say(line)
+        fail(f"scale_point: benchmark exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    bench = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    line["benchmark"] = bench
+    names = [b["metric"] for b in bench]
+    if names != [f"detect_compute_{size}", "match_2000x2000"]:
+        bad.append(f"benchmark lines {names}")
+    for b in bench:
+        if not (math.isfinite(b["value"]) and b["value"] > 0):
+            bad.append(f"benchmark {b['metric']} {b['value']}")
+    if bench and bench[0].get("keypoints") != n1:
+        bad.append(f"benchmark keypoints {bench[0].get('keypoints')}, the "
+                   f"detector's {n1}")
+    zero_counters(FD, EX, FS)
+    out, mem, code = stdout_of(mem_analysis.main,
+                               [size, "--num-features", str(nf)])
+    line["mem_analysis"] = mem[0] if mem else None
+    if code not in (None, 0) or not mem or not all(
+            math.isfinite(mem[0][k]) and mem[0][k] > 0
+            for k in ("temp_mib", "args_mib", "output_mib", "total_mib")):
+        bad.append(f"mem_analysis: {out!r}, exit {code}")
+    line["seconds"] = time.perf_counter() - t_phase
+    say(line)
+    failed = [k for k, e in kernels.items() if not e["passed"]]
+    if failed:
+        bad.append(f"kernels disagree with their plain versions at these "
+                   f"shapes: {failed}")
+    if bad:
+        fail("scale_point: " + "; ".join(bad))
+    return kernels, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2568,20 +2810,11 @@ def main() -> int:
         fail(f"plain versions ran on the main path: {plain}")
     n1, n2 = int(r1.count), int(r2.count)
     for r, n in ((r1, n1), (r2, n2)):
-        if not (r.descriptors.is_cuda and r.keypoints.x.is_cuda):
-            fail("results are not CUDA tensors")
-        if r.descriptors.dtype != torch.uint8 \
-                or tuple(r.descriptors.shape) != (NUM_FEATURES, 128):
-            fail("descriptors are not [num_features, 128] uint8")
+        bad = result_faults(r, NUM_FEATURES)
         if n <= 300:
-            fail(f"only {n} keypoints on a 752x480 textured frame")
-        if not bool((r.descriptors[:n].sum(1) > 0).all()):
-            fail("a valid keypoint has an all-zero descriptor")
-        if bool(r.descriptors[n:].any()) or bool(r.keypoints.valid[n:].any()):
-            fail("rows past the count are not empty")
-        for f in ("x", "y", "size", "angle", "response"):
-            if not bool(torch.isfinite(getattr(r.keypoints, f)).all()):
-                fail(f"non-finite keypoint field {f}")
+            bad.append(f"only {n} keypoints on a 752x480 textured frame")
+        if bad:
+            fail("main_path: " + "; ".join(bad))
     n_match = int((matches >= 0).sum())
     rate = n_match / n2
     if rate < 0.30:
@@ -2659,6 +2892,13 @@ def main() -> int:
         sub = corridor[e["name"]]
         e["corridor_frame"] = {key: sub[key] for key in sub
                                if key not in ENTRY_KEYS}
+        e["passed"] = e["passed"] and sub["passed"]
+    scale, scale_launches = run_scale_point(FD, EX, FS, smi)
+    for e in kernels[:4]:
+        e["launches_scale_point"] = scale_launches[e["name"]]
+        sub = scale[e["name"]]
+        e["scale_point_frame"] = {key: sub[key] for key in sub
+                                  if key not in ENTRY_KEYS}
         e["passed"] = e["passed"] and sub["passed"]
     for main_e, *subs in ((k2, photo[0], tier[0]), (k3, photo[1], tier[1])):
         for sub in subs:

@@ -26,7 +26,9 @@ PyTorch) so that no read can leave it.
 Only rows ``[start, start + count)`` are computed (``count``/``start`` may
 be ints, None or 0-d integer tensors on the device, which the kernels read
 themselves: nothing here synchronises with the host); all other rows of
-the output are zero.
+the output are zero.  The plain versions skip the other rows where
+``count`` and ``start`` are known on the host (ints, None or CPU tensors),
+and otherwise compute every row and mask.
 """
 
 from __future__ import annotations
@@ -243,6 +245,22 @@ def _window_terms(values, ys0, xs0, par, rows, lanes):
     return mag, ori, offy, offx, wy, wx
 
 
+def _host_span(k, count, start):
+    """``[lo, hi)``, the live rows, where ``count`` and ``start`` are known
+    on the host (None, ints or CPU tensors: reading them waits for
+    nothing); all ``k`` rows where either lies on a device."""
+    vals = []
+    for v, default in ((count, k), (start, 0)):
+        if v is None:
+            v = default
+        elif torch.is_tensor(v) and v.device.type != "cpu":
+            return 0, k
+        vals.append(int(v))
+    cnt, st = vals
+    lo = min(max(st, 0), k)
+    return lo, max(lo, min(st + min(cnt, k), k))
+
+
 def _live_rows(k, count, start, device):
     cs = _count_start(count, start, k, device)
     j = torch.arange(k, dtype=torch.int32, device=device)
@@ -257,9 +275,10 @@ def orientation_hist_plain(values, ys0, xs0, par, rows: int,
     _check_args(values, ys0, xs0, par, rows, lanes)
     k = ys0.shape[0]
     ys0, xs0 = _clamp_origins(ys0, xs0, values, rows, lanes)
-    outs = []
-    for s in range(0, k, chunk):
-        sl = slice(s, min(s + chunk, k))
+    hist = torch.zeros((k, _NBO), dtype=torch.float32, device=values.device)
+    lo, hi = _host_span(k, count, start)
+    for s in range(lo, hi, chunk):
+        sl = slice(s, min(s + chunk, hi))
         mag, ori, _, _, wy, wx = _window_terms(
             values, ys0[sl], xs0[sl], par[sl], rows, lanes)
         contrib = mag * wy[:, :, None] * wx[:, None, :]
@@ -268,13 +287,8 @@ def orientation_hist_plain(values, ys0, xs0, par, rows: int,
         b = torch.where(b >= _NBO, b - _NBO, b)
         b = torch.where(b < 0, b + _NBO, b)
         kc = contrib.shape[0]
-        hist = torch.zeros((kc, _NBO), dtype=torch.float32,
-                           device=values.device)
-        hist.scatter_add_(1, b.reshape(kc, -1).to(torch.int64),
-                          contrib.reshape(kc, -1))
-        outs.append(hist)
-    hist = torch.cat(outs) if outs else torch.zeros(
-        (0, _NBO), dtype=torch.float32, device=values.device)
+        hist[sl].scatter_add_(1, b.reshape(kc, -1).to(torch.int64),
+                              contrib.reshape(kc, -1))
     live = _live_rows(k, count, start, values.device)
     return torch.where(live[:, None], hist, torch.zeros_like(hist))
 
@@ -291,9 +305,10 @@ def descriptor_hist_plain(values, ys0, xs0, par, rows: int,
     ys0, xs0 = _clamp_origins(ys0, xs0, values, rows, lanes)
     cells = torch.arange(_D, dtype=torch.float32, device=dev)
     obins = torch.arange(_NBD, dtype=torch.float32, device=dev)
-    outs = []
-    for s in range(0, k, chunk):
-        sl = slice(s, min(s + chunk, k))
+    hist = torch.zeros((k, _D * _D * _NBD), dtype=torch.float32, device=dev)
+    lo, hi = _host_span(k, count, start)
+    for s in range(lo, hi, chunk):
+        sl = slice(s, min(s + chunk, hi))
         pc = par[sl]
         mag, ori, offy, offx, wy, wx = _window_terms(
             values, ys0[sl], xs0[sl], pc, rows, lanes)
@@ -326,10 +341,8 @@ def descriptor_hist_plain(values, ys0, xs0, par, rows: int,
                          min=0.0)
         hrc = (hr[:, :, :, None] * hc[:, :, None, :]).reshape(kc, p,
                                                               _D * _D)
-        outs.append(torch.bmm(hrc.transpose(1, 2), wo)
-                    .reshape(kc, _D * _D * _NBD))
-    hist = torch.cat(outs) if outs else torch.zeros(
-        (0, _D * _D * _NBD), dtype=torch.float32, device=dev)
+        hist[sl] = torch.bmm(hrc.transpose(1, 2), wo).reshape(
+            kc, _D * _D * _NBD)
     live = _live_rows(k, count, start, dev)
     return torch.where(live[:, None], hist, torch.zeros_like(hist))
 

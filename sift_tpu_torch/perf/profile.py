@@ -72,30 +72,19 @@ def device_ms(fn, calls: int = 10, name: str = ""):
     return None
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile: needs a CUDA device", file=sys.stderr)
-        return 1
+def frame_profile(det, img, frames: int = FRAMES) -> dict:
+    """Where ``frames`` calls of ``det.detect_and_compute(img)`` spend
+    their time on the card, after three warm frames: the host clock per
+    frame, then the same frames again under ``torch.profiler`` for the
+    device's busy time (sum of all kernel and copy durations), its idle
+    share against the host clock, the device kernels per frame, the
+    matrix products' and the package's own kernels' device time, and
+    the 25 largest rows by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sift_tpu_torch import SiftConfig, SiftDetector
-    from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES,
-                                              FLAGSHIP_HEIGHT,
-                                              FLAGSHIP_WIDTH, bench_image)
-
-    width, height, frames = FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT, FRAMES
-    det = SiftDetector(SiftConfig(width=width, height=height,
-                                  num_features=FLAGSHIP_FEATURES))
-    img = torch.as_tensor(bench_image(height, width, seed=0),
-                          device=det.device)
-    det.warm_up()
     for _ in range(3):
         det.detect_and_compute(img)
     torch.cuda.synchronize()
-
     t0 = time.perf_counter()
     for _ in range(frames):
         res = det.detect_and_compute(img)
@@ -109,15 +98,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     rows = device_rows(prof, frames)
     busy_ms = sum(r[1] for r in rows)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    out = {
-        "card": smi, "torch": torch.__version__,
-        "width": width, "height": height,
-        "num_features": FLAGSHIP_FEATURES, "frames": frames,
-        "keypoints": int(res.count),
+    return {
+        "frames": frames, "keypoints": int(res.count),
         "frame_wall_ms": wall_ms,
         "device_busy_ms_per_frame": busy_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
@@ -130,6 +112,34 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": k[:100], "ms_per_frame": ms,
                          "calls_per_frame": n} for k, ms, n in rows[:25]],
     }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile: needs a CUDA device", file=sys.stderr)
+        return 1
+    from sift_tpu_torch import SiftConfig, SiftDetector
+    from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES,
+                                              FLAGSHIP_HEIGHT,
+                                              FLAGSHIP_WIDTH, bench_image)
+
+    width, height = FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT
+    det = SiftDetector(SiftConfig(width=width, height=height,
+                                  num_features=FLAGSHIP_FEATURES))
+    img = torch.as_tensor(bench_image(height, width, seed=0),
+                          device=det.device)
+    det.warm_up()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = {"card": smi, "torch": torch.__version__,
+           "width": width, "height": height,
+           "num_features": FLAGSHIP_FEATURES,
+           **frame_profile(det, img)}
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

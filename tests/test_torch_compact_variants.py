@@ -15,6 +15,16 @@ from sift_tpu_torch.core.convert import keypoints_from_numpy
 from sift_tpu_torch.ops import compact as TC
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(jout, tout):
     """Every slot equal, dead ones included (both sides put the lowest
     unselected indices there)."""

@@ -33,6 +33,16 @@ from test_torch_detector import _hold, _jax_result, _port_result
 from test_torch_fused_stages import _jk, _rel, _tk, setup  # noqa: F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jpad(s):
     return JF.pad_pyramid([jnp.asarray(b) for b in s["blocks"]])
 

@@ -3,11 +3,22 @@ sequence (tests/test_loop_closure.py's trajectory), the detector replaced
 by the stub of tests/test_torch_odometry.py in both packages."""
 import numpy as np
 import pytest
+import torch
 
 from sift_tpu.geometry.trajectory import ate_rmse
-from tests.test_torch_odometry import (_one_torch_thread,  # noqa: F401
-                                       jax_geometry_jitted, loop_pose,
+from tests.test_torch_odometry import (jax_geometry_jitted, loop_pose,
                                        make_odometry, stub_frames)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are tiny: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_LOOP = 9
 LOOP_KW = dict(loop_closure=True, kf_interval=2, loop_min_gap=6,

@@ -9,6 +9,17 @@ import torch
 import sift_tpu
 import sift_tpu_torch as stt
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 Q, S = 300, 400
 
 

@@ -19,6 +19,17 @@ from sift_tpu.ops.pyramid import gaussian_pyramid as jax_gaussian_pyramid
 from sift_tpu_torch.core import convert
 from sift_tpu_torch.ops.pyramid import dog_pyramid, gaussian_pyramid
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CONFIGS = {
     "default_320x240": dict(width=320, height=240, num_features=512),
     "upscale_160x120": dict(width=160, height=120, num_features=512,
@@ -239,3 +250,35 @@ def test_chip_smoke_imports_only_the_port_and_fails_without_a_gpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_every_port_test_file_pins_one_torch_thread():
+    """ROADMAP's test budget: every tests/test_torch_*.py module defines
+    the module-scoped autouse fixture ``_one_torch_thread``, whose body
+    reads the thread count, sets one intra-op thread, yields and restores
+    the count — read from each module's source, nothing imported."""
+    import ast
+    import glob
+    import os
+    want = ["n = torch.get_num_threads()", "torch.set_num_threads(1)",
+            "yield", "torch.set_num_threads(n)"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(here, "test_torch_*.py")))
+    assert len(files) >= 25
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        fix = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+               and n.name == "_one_torch_thread"]
+        ok = len(fix) == 1
+        if ok:
+            dec = [ast.unparse(d) for d in fix[0].decorator_list]
+            body = [ast.unparse(s) for s in fix[0].body
+                    if not (isinstance(s, ast.Expr)
+                            and isinstance(s.value, ast.Constant))]
+            ok = (dec == ["pytest.fixture(scope='module', autouse=True)"]
+                  and body == want)
+        if not ok:
+            bad.append(os.path.basename(path))
+    assert not bad, bad

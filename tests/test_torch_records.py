@@ -20,15 +20,32 @@ from sift_tpu_torch.ops import records as trec
 from sift_tpu_torch.ops.compact import stream_compact
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pyr(test_image):
-    """The JAX package's own pyramid of the 320x240 test frame, numpy."""
+    """The JAX package's own pyramid of the 320x240 test frame, numpy,
+    and its record fields.  Both jitted, as the JAX detector runs them:
+    one compile per octave shape instead of one per eager op (the
+    pyramid is bit-equal to the eager one; the records differ from eager
+    ones on a few pixels of octave 0, which the walk and candidate tests
+    take as input on both sides)."""
     h, w = test_image.shape
     jcfg = sift_tpu.SiftConfig(width=w, height=h)
     jplan = sift_tpu.build_plan(jcfg)
-    gauss = [np.array(g) for g in
-             jax_gaussian_pyramid(jplan, jnp.asarray(test_image))]
-    jrecs = [jrec.records_jnp(jnp.asarray(g), jcfg) for g in gauss]
+    gauss = [np.array(g) for g in jax.jit(
+        lambda im: jax_gaussian_pyramid(jplan, im))(jnp.asarray(test_image))]
+    records = jax.jit(lambda g: jrec.records_jnp(g, jcfg).values)
+    jrecs = [jrec.OctaveRecords(values=records(jnp.asarray(g)),
+                                h=g.shape[1], w=g.shape[2]) for g in gauss]
     return jcfg, jplan, gauss, jrecs
 
 
@@ -77,9 +94,11 @@ def _hold_records(ref, got, o):
 # below which the JAX package never runs its kernel), octave 4 (15x20).
 @pytest.mark.parametrize("o", [0, 2, 4])
 def test_detect_records_plain_matches_records_jnp(pyr, o):
-    jcfg, _, gauss, jrecs = pyr
+    """Against records_jnp run eagerly, op by op as PyTorch runs the plain
+    version (the jitted field of ``pyr`` fuses differently)."""
+    jcfg, _, gauss, _ = pyr
     tcfg = stt.SiftConfig(width=jcfg.width, height=jcfg.height)
-    ref = jrecs[o]
+    ref = jrec.records_jnp(jnp.asarray(gauss[o]), jcfg)
     ho, wo = ref.h, ref.w
     got = _plain(gauss[o], tcfg)
     assert tuple(got.shape) == (3, tcfg.num_octave_layers, ho, wo)

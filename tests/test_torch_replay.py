@@ -25,6 +25,17 @@ from sift_tpu_torch.perf import oracle as TOR
 from sift_tpu_torch.perf import replay as TRP
 from sift_tpu_torch.tools import perf as cli
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # The golden of tests/test_perf_replay.py, and a textured frame with a few
 # hundred octave-0 keypoints (the disc scene has a handful).
 SCENES = {

@@ -42,11 +42,24 @@ import sys
 import time
 
 import numpy as np
+import pytest
+import torch
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(_TESTS), _TESTS]
 
 from sift_tpu_torch.perf import scenes  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W, H = 752, 480
 

@@ -28,6 +28,17 @@ from sift_tpu.ops import flatpyr as JF
 from sift_tpu_torch.kernels import window_gather as TW
 from sift_tpu_torch.perf import window_proto as WP
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread keeps this
+    file off the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (L, Hp, Wp, rows, radius): a slab with room, one narrower than a window,
 # one lower than a window, one smaller both ways.
 SHAPES = {
