@@ -1,27 +1,33 @@
 """Where one frame's time goes on the GPU.
 
-    python -m sift_tpu_torch.perf.profile [--out FILE.json]
+    python -m sift_tpu_torch.perf.profile [--size WxH] [--num-features N]
+        [--out FILE.json]
 
-Runs ``SiftDetector.detect_and_compute`` on the 752x480 benchmark image
-(``num_features=5000``) for 10 frames under ``torch.profiler`` and prints
-one JSON object:
+Runs ``SiftDetector.detect_and_compute`` on the benchmark image (default
+752x480, ``num_features=5000``) for 10 frames under ``torch.profiler``
+and prints one JSON object:
 frame time on the host clock, the device's busy time per frame (sum of all
 kernel and memcpy durations), its idle share, the number of device kernels
 per frame, the device time of the package's own kernels and of the
-matrix products, and the device time by kernel name (top 25).  Needs a CUDA
-device; fails without one.
+matrix products, the device time by kernel name (top 25), and the host and
+device time a frame of each of the program's ``sift.*`` spans.  Needs a
+CUDA device; fails without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
+from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES, FLAGSHIP_HEIGHT,
+                                          FLAGSHIP_WIDTH, bench_image)
 
 FRAMES = 10
 PROFILE_ATTEMPTS = 3
@@ -33,11 +39,14 @@ _OWN = ("detect_records_kernel", "expand_lane_copies_kernel",
 def device_rows(prof, calls: int):
     """(kernel name, device ms per call, launches per call) of a finished
     ``torch.profiler`` run, largest first.  Device rows only: the
-    host-side aten:: rows repeat the time of the kernels they launched."""
+    host-side aten:: rows repeat the time of the kernels they launched,
+    and a range's device-side copy (``gpu_user_annotation``) the time of
+    the kernels inside it."""
     from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -72,14 +81,57 @@ def device_ms(fn, calls: int = 10, name: str = ""):
     return None
 
 
+def span_rows(prof, calls: int):
+    """[{span, calls, host_ms, device_ms} per call] of every ``sift.*``
+    span in a finished ``torch.profiler`` run, in the order each first
+    opened: ``host_ms`` the span's length on the host, ``device_ms`` the
+    device time of the kernels and copies whose launch (a CUDA API call,
+    found by correlation id in the exported trace) lies inside it, its
+    nested spans' included.  Read from the trace: the profiler's own tree
+    attaches no kernel that the package launches with ``cuLaunchKernel``
+    (K1, K5, K2, K3) to an enclosing range."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"],
+                    e.get("tid")) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and str(e.get("name", "")).startswith("sift."))
+    acc = {}
+    for s, t, name, _ in spans:
+        n, host, dev = acc.get(name, (0, 0.0, 0.0))
+        acc[name] = (n + 1, host + t - s, dev)
+    launched = {}                   # correlation id -> enclosing spans
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr:
+            launched[corr] = {name for s, t, name, tid in spans
+                              if s <= e["ts"] <= t and tid == e.get("tid")}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            for name in launched.get(corr, ()):
+                n, host, dev = acc[name]
+                acc[name] = (n, host, dev + e.get("dur", 0))
+    return [{"span": k, "calls": n / calls, "host_ms": h / calls / 1e3,
+             "device_ms": d / calls / 1e3}
+            for k, (n, h, d) in acc.items()]
+
+
 def frame_profile(det, img, frames: int = FRAMES) -> dict:
     """Where ``frames`` calls of ``det.detect_and_compute(img)`` spend
     their time on the card, after three warm frames: the host clock per
     frame, then the same frames again under ``torch.profiler`` for the
     device's busy time (sum of all kernel and copy durations), its idle
     share against the host clock, the device kernels per frame, the
-    matrix products' and the package's own kernels' device time, and
-    the 25 largest rows by kernel name."""
+    matrix products' and the package's own kernels' device time, the 25
+    largest rows by kernel name, and the program's spans (``span_rows``,
+    a frame each)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -111,24 +163,25 @@ def frame_profile(det, img, frames: int = FRAMES) -> dict:
                         if k.startswith(_OWN)],
         "top_kernels": [{"name": k[:100], "ms_per_frame": ms,
                          "calls_per_frame": n} for k, ms, n in rows[:25]],
+        "spans": span_rows(prof, frames),
     }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--size", default=f"{FLAGSHIP_WIDTH}x{FLAGSHIP_HEIGHT}",
+                    help="frame WxH")
+    ap.add_argument("--num-features", type=int, default=FLAGSHIP_FEATURES)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: needs a CUDA device", file=sys.stderr)
         return 1
     from sift_tpu_torch import SiftConfig, SiftDetector
-    from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES,
-                                              FLAGSHIP_HEIGHT,
-                                              FLAGSHIP_WIDTH, bench_image)
 
-    width, height = FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT
+    width, height = (int(v) for v in args.size.split("x"))
     det = SiftDetector(SiftConfig(width=width, height=height,
-                                  num_features=FLAGSHIP_FEATURES))
+                                  num_features=args.num_features))
     img = torch.as_tensor(bench_image(height, width, seed=0),
                           device=det.device)
     det.warm_up()
@@ -138,7 +191,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     out = {"card": smi, "torch": torch.__version__,
            "width": width, "height": height,
-           "num_features": FLAGSHIP_FEATURES,
+           "num_features": args.num_features,
            **frame_profile(det, img)}
     text = json.dumps(out, indent=1)
     print(text)

@@ -6,15 +6,31 @@ typed events and scalar series, exposes summaries, and serializes to
 JSON-lines; ``MonocularOdometry(telemetry=...)`` emits one event per
 frame (mode, matches, inliers, landmark/keyframe counts, loop closures,
 BA activity), ``tools/odometry.py --telemetry PATH`` writes the stream.
+
+The program's own spans and counters live here too, and exist only while
+``torch.profiler`` runs (``tracing()``): ``span(name)`` is then a
+``record_function`` range, a ``user_annotation`` in the same trace as the
+kernels it launches (their correlation ids tie each kernel to it), and at
+any other time one shared no-op context.  ``count`` (a host number) and
+``count_device`` (a 0-d device tensor, added on the device with no
+synchronisation) move process-wide counters, again only while tracing;
+``program_counters()`` reads them all after the work.  The detector opens
+``sift.detect`` and its stages ``sift.detect.{pyramid, records, walk,
+compact, orientation, expand, descriptor}``; the matcher ``sift.match``
+over ``sift.match.{gram, select, count}`` and counts ``match.entries`` and
+``match.live_entries``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from typing import Dict, List, Optional
+
+import torch
 
 
 class Telemetry:
@@ -93,3 +109,58 @@ def get(telemetry: Optional[Telemetry]) -> Telemetry:
     """Null-object helper: callers emit unconditionally; the shared no-op
     sink swallows everything when none was configured."""
     return telemetry if telemetry is not None else _NULL
+
+
+_NO_SPAN = contextlib.nullcontext()
+_host_counts: Dict[str, int] = defaultdict(int)
+_device_counts: Dict[tuple, torch.Tensor] = {}
+
+
+def tracing() -> bool:
+    """True while a ``torch.profiler`` session records (~0.2 us)."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while tracing, else the shared
+    no-op context: off the profiler a span builds nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the host counter ``name`` (only while tracing)."""
+    if torch.autograd._profiler_enabled():
+        _host_counts[name] += int(n)
+
+
+def count_device(name: str, value: torch.Tensor) -> None:
+    """Add the 0-d integer tensor ``value`` into the counter ``name`` on
+    its device, without a synchronisation (only while tracing)."""
+    if torch.autograd._profiler_enabled():
+        key = (name, value.device)
+        acc = _device_counts.get(key)
+        if acc is None:
+            _device_counts[key] = value.to(torch.int64, copy=True)
+        else:
+            acc.add_(value)
+
+
+def program_counters() -> Dict[str, int]:
+    """Every counter by name, host and device parts summed (one read of
+    each device's counters: call it after the work)."""
+    out = dict(_host_counts)
+    by_dev = defaultdict(list)
+    for (name, dev), acc in _device_counts.items():
+        by_dev[dev].append((name, acc))
+    for items in by_dev.values():
+        vals = torch.stack([acc for _, acc in items]).tolist()
+        for (name, _), v in zip(items, vals):
+            out[name] = out.get(name, 0) + int(v)
+    return out
+
+
+def reset_program_counters() -> None:
+    _host_counts.clear()
+    _device_counts.clear()

@@ -57,6 +57,7 @@ from sift_tpu_torch.ops.records import (WalkState, candidates_from_records,
                                         finalize_walk,
                                         resolve_kernel_impl,
                                         walk_records_positions)
+from sift_tpu_torch.perf.telemetry import span
 
 
 def resolve_device(device) -> torch.device:
@@ -135,123 +136,130 @@ def build_detect_fn(plan: SiftPlan, quant_mode: str = "opencv",
         # zero padding is rows and columns of the band-blocked operators,
         # so the record-field kernel reads it with no repacking copy; all
         # other consumers take natural-shape views.
-        gp = gaussian_pyramid_padded(plan, image, ops)
-        gauss = padded_content_views(plan, gp)
+        with span("sift.detect.pyramid"):
+            gp = gaussian_pyramid_padded(plan, image, ops)
+            gauss = padded_content_views(plan, gp)
 
         # Dense detection: ONE kernel launch for all octaves (DoG +
         # extrema + Newton records — the DoG volume is never
         # materialised), per-octave candidate compaction (octave-major
         # order), then ONE Newton walk over all octaves' candidates.
-        recs = detect_records_padded_pyramid(plan, gp, impl)
-        cands = [candidates_from_records(recs[o], plan.octaves[o].cand_cap)
-                 for o in range(cfg.num_octaves)]
-        st, rflat = walk_records_positions(recs, cands, cfg)
+        with span("sift.detect.records"):
+            recs = detect_records_padded_pyramid(plan, gp, impl)
+            cands = [candidates_from_records(recs[o], plan.octaves[o].cand_cap)
+                     for o in range(cfg.num_octaves)]
+        with span("sift.detect.walk"):
+            st, rflat = walk_records_positions(recs, cands, cfg)
 
         # Global compaction: ONE fixed-capacity keypoint set across all
         # octaves.  The walk's B/C planes (sub-pixel offsets, response) are
         # only gathered AFTER compaction — kcap rows, not candidate
         # capacity.  One packed row-gather instead of six.
-        idx, val = C.stream_compact(st.ok, kcap)
-        idx = idx.to(torch.int64)
-        stm = torch.stack([st.l, st.r, st.c, st.ok.to(torch.int32),
-                           st.octv], dim=1)
-        stg = stm[idx]
-        stc = WalkState(l=stg[:, 0], r=stg[:, 1], c=stg[:, 2],
-                        ok=stg[:, 3].to(torch.bool), octv=stg[:, 4],
-                        fi=st.fi[idx])
-        ref, koct = finalize_walk(rflat, stc, val, cfg)
-        kx, ky, klyr, kxi = ref.x, ref.y, ref.layer, ref.xi
-        ksize, kresp = ref.size, ref.response
+        with span("sift.detect.compact"):
+            idx, val = C.stream_compact(st.ok, kcap)
+            idx = idx.to(torch.int64)
+            stm = torch.stack([st.l, st.r, st.c, st.ok.to(torch.int32),
+                               st.octv], dim=1)
+            stg = stm[idx]
+            stc = WalkState(l=stg[:, 0], r=stg[:, 1], c=stg[:, 2],
+                            ok=stg[:, 3].to(torch.bool), octv=stg[:, 4],
+                            fi=st.fi[idx])
+            ref, koct = finalize_walk(rflat, stc, val, cfg)
+            kx, ky, klyr, kxi = ref.x, ref.y, ref.layer, ref.xi
+            ksize, kresp = ref.size, ref.response
 
-        n_kp = val.to(torch.int32).sum()
-        if fused:
-            # The per-keypoint kernels read RAW pixel windows off ONE
-            # row-stacked slab of shifted copies (keypoint layers 1..L
-            # only) and compute gradients + histograms on chip — no dense
-            # gradient slabs.
-            nl = cfg.num_octave_layers
-            margin = window_rows(rmax)
-            slab_g = stack_pyramid(gauss, extra_rows=margin, copies=ncop,
-                                   layer_lo=1, layer_hi=nl + 1, impl=impl)
-            if cfg.orientation_source == "gaussian":
-                ori_slab = slab_g
+        with span("sift.detect.orientation"):
+            n_kp = val.to(torch.int32).sum()
+            if fused:
+                # The per-keypoint kernels read RAW pixel windows off ONE
+                # row-stacked slab of shifted copies (keypoint layers 1..L
+                # only) and compute gradients + histograms on chip — no dense
+                # gradient slabs.
+                nl = cfg.num_octave_layers
+                margin = window_rows(rmax)
+                slab_g = stack_pyramid(gauss, extra_rows=margin, copies=ncop,
+                                       layer_lo=1, layer_hi=nl + 1, impl=impl)
+                if cfg.orientation_source == "gaussian":
+                    ori_slab = slab_g
+                else:
+                    ori_slab = stack_pyramid(dog_pyramid(gauss),
+                                             extra_rows=margin, copies=ncop,
+                                             layer_lo=1, layer_hi=nl + 1,
+                                             impl=impl)
+                # Live counts let the kernels skip every block past the
+                # frame's actual keypoint count (compactions are valid-first).
+                ys0, xs0, par, rows, lanes = O.orientation_params(
+                    ori_slab, koct, kx, ky, klyr, ksize, val, cfg)
+                hist = orientation_hist(ori_slab.values, ys0, xs0, par, rows,
+                                        lanes, count=n_kp, impl=impl)
             else:
-                ori_slab = stack_pyramid(dog_pyramid(gauss),
-                                         extra_rows=margin, copies=ncop,
-                                         layer_lo=1, layer_hi=nl + 1,
-                                         impl=impl)
-            # Live counts let the kernels skip every block past the
-            # frame's actual keypoint count (compactions are valid-first).
-            ys0, xs0, par, rows, lanes = O.orientation_params(
-                ori_slab, koct, kx, ky, klyr, ksize, val, cfg)
-            hist = orientation_hist(ori_slab.values, ys0, xs0, par, rows,
-                                    lanes, count=n_kp, impl=impl)
-        else:
-            # Dense gradients once per frame on the padded uniform stack.
-            # The descriptor reads a PACKED (mag, ori) slab — one window
-            # copy per keypoint; orientation keeps the full-precision pair
-            # (its 1-degree parity gate is sensitive to quantisation).
-            padded_gauss = pad_pyramid(gauss)
-            gradf = shift(dense_gradients_packed(padded_gauss))
-            o_mag, o_ori = dense_gradients_padded(
-                padded_gauss if cfg.orientation_source == "gaussian"
-                else pad_pyramid(dog_pyramid(gauss)))
-            hist = O.orientation_histograms_flat(
-                shift(o_mag), shift(o_ori), koct, kx, ky, klyr, ksize, val,
-                cfg)
-        angles, peaks = O.orientation_peaks(hist, val, cfg)
+                # Dense gradients once per frame on the padded uniform stack.
+                # The descriptor reads a PACKED (mag, ori) slab — one window
+                # copy per keypoint; orientation keeps the full-precision pair
+                # (its 1-degree parity gate is sensitive to quantisation).
+                padded_gauss = pad_pyramid(gauss)
+                gradf = shift(dense_gradients_packed(padded_gauss))
+                o_mag, o_ori = dense_gradients_padded(
+                    padded_gauss if cfg.orientation_source == "gaussian"
+                    else pad_pyramid(dog_pyramid(gauss)))
+                hist = O.orientation_histograms_flat(
+                    shift(o_mag), shift(o_ori), koct, kx, ky, klyr, ksize, val,
+                    cfg)
+            angles, peaks = O.orientation_peaks(hist, val, cfg)
 
         # Expansion: up to 36 oriented copies per keypoint
         # (SiftOps.cu:338-373), flattened and compacted to num_features.
-        eidx, evalid = C.stream_compact(peaks.reshape(-1), kcap)
-        src = torch.div(eidx, nb, rounding_mode="floor").to(torch.int64)
+        with span("sift.detect.expand"):
+            eidx, evalid = C.stream_compact(peaks.reshape(-1), kcap)
+            src = torch.div(eidx, nb, rounding_mode="floor").to(torch.int64)
 
-        fm = torch.stack([kx, ky, kxi, ksize, kresp], dim=1)[src]
-        im = torch.stack([klyr, koct], dim=1)[src]
-        arow = angles[src]                                # [kcap, nb]
-        bsel = (eidx % nb)[:, None] == bins
-        kps = Keypoints(
-            x=fm[:, 0], y=fm[:, 1],
-            layer=im[:, 0],
-            octave=im[:, 1],
-            xi=fm[:, 2], size=fm[:, 3],
-            response=fm[:, 4],
-            angle=torch.where(bsel, arow, torch.zeros_like(arow)).sum(1),
-            valid=evalid)
+            fm = torch.stack([kx, ky, kxi, ksize, kresp], dim=1)[src]
+            im = torch.stack([klyr, koct], dim=1)[src]
+            arow = angles[src]                                # [kcap, nb]
+            bsel = (eidx % nb)[:, None] == bins
+            kps = Keypoints(
+                x=fm[:, 0], y=fm[:, 1],
+                layer=im[:, 0],
+                octave=im[:, 1],
+                xi=fm[:, 2], size=fm[:, 3],
+                response=fm[:, 4],
+                angle=torch.where(bsel, arow, torch.zeros_like(arow)).sum(1),
+                valid=evalid)
 
-        n_desc = evalid.to(torch.int32).sum()
-        if fused:
-            ys0, xs0, par, rows, lanes = D.descriptor_params(
-                slab_g, kps.octave, kps.x, kps.y, kps.layer, kps.size,
-                kps.angle, kps.valid, cfg)
-            dhist = descriptor_hist(slab_g.values, ys0, xs0, par, rows,
-                                    lanes, count=n_desc, impl=impl)
-            dhist = torch.where(evalid[:, None], dhist,
-                                torch.zeros_like(dhist))
-            desc, nrm2 = D.finalize_descriptor(dhist)
-        else:
-            desc, nrm2 = D.compute_descriptors_flat(
-                gradf, kps.octave, kps.x, kps.y, kps.layer, kps.size,
-                kps.angle, kps.valid, cfg)
-        desc = D.quantize_descriptor(desc, nrm2, quant_mode)
-        desc = torch.where(evalid[:, None], desc, torch.zeros_like(desc))
-        if quant_mode == "opencv" and cfg.descriptor_dtype == "uint8":
-            # Integer-quantised values fit one byte; the matcher's bf16
-            # path matches bit-identically (config.descriptor_dtype).
-            desc = desc.to(torch.uint8)
+        with span("sift.detect.descriptor"):
+            n_desc = evalid.to(torch.int32).sum()
+            if fused:
+                ys0, xs0, par, rows, lanes = D.descriptor_params(
+                    slab_g, kps.octave, kps.x, kps.y, kps.layer, kps.size,
+                    kps.angle, kps.valid, cfg)
+                dhist = descriptor_hist(slab_g.values, ys0, xs0, par, rows,
+                                        lanes, count=n_desc, impl=impl)
+                dhist = torch.where(evalid[:, None], dhist,
+                                    torch.zeros_like(dhist))
+                desc, nrm2 = D.finalize_descriptor(dhist)
+            else:
+                desc, nrm2 = D.compute_descriptors_flat(
+                    gradf, kps.octave, kps.x, kps.y, kps.layer, kps.size,
+                    kps.angle, kps.valid, cfg)
+            desc = D.quantize_descriptor(desc, nrm2, quant_mode)
+            desc = torch.where(evalid[:, None], desc, torch.zeros_like(desc))
+            if quant_mode == "opencv" and cfg.descriptor_dtype == "uint8":
+                # Integer-quantised values fit one byte; the matcher's bf16
+                # path matches bit-identically (config.descriptor_dtype).
+                desc = desc.to(torch.uint8)
 
-        if cfg.upscale:
-            # OpenCV firstOctave = -1 final adjustment: halve coords/size,
-            # octave index shifts down by one.
-            kps = kps._replace(x=kps.x * 0.5, y=kps.y * 0.5,
-                               size=kps.size * 0.5, octave=kps.octave - 1)
-        if kcap < cfg.num_features:
-            # Pad tiered outputs to the uniform num_features shape.
-            pad = cfg.num_features - kcap
-            padf = lambda a: torch.cat(
-                [a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
-            kps = Keypoints(*[padf(f) for f in kps])
-            desc = padf(desc)
+            if cfg.upscale:
+                # OpenCV firstOctave = -1 final adjustment: halve coords/size,
+                # octave index shifts down by one.
+                kps = kps._replace(x=kps.x * 0.5, y=kps.y * 0.5,
+                                   size=kps.size * 0.5, octave=kps.octave - 1)
+            if kcap < cfg.num_features:
+                # Pad tiered outputs to the uniform num_features shape.
+                pad = cfg.num_features - kcap
+                padf = lambda a: torch.cat(
+                    [a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+                kps = Keypoints(*[padf(f) for f in kps])
+                desc = padf(desc)
         return SiftResult(keypoints=kps, descriptors=desc,
                           count=n_desc, raw_count=n_kp)
 
@@ -314,33 +322,34 @@ class SiftDetector:
     def detect_and_compute(self, image) -> SiftResult:
         """image: [H, W] grayscale 0..255 (tensor or array-like); moved to
         the detector's device as float32."""
-        image = torch.as_tensor(image).to(device=self.device,
-                                          dtype=torch.float32)
-        if tuple(image.shape) != (self.config.height, self.config.width):
-            raise ValueError(
-                f"image shape {tuple(image.shape)} != configured "
-                f"{(self.config.height, self.config.width)}")
-        tier = self._pick_tier()
-        if tier is None:
-            result = self._fn(image)
-            if self.tiers:
-                # The count steers the next frame's tier (the only host
-                # synchronisation, and only with tiers on).
-                self._last_count = int(result.count)
-        else:
-            result = self._tier_fns[tier](image)
-            # Both compactions (keypoints, then oriented copies) run at the
-            # tier, so a frame that fills either may have been truncated:
-            # run it again at full capacity for the exact result.  One host
-            # read for both counts.
-            count, raw = torch.stack([result.count,
-                                      result.raw_count]).tolist()
-            if max(count, raw) >= tier:
+        with span("sift.detect"):
+            image = torch.as_tensor(image).to(device=self.device,
+                                              dtype=torch.float32)
+            if tuple(image.shape) != (self.config.height, self.config.width):
+                raise ValueError(
+                    f"image shape {tuple(image.shape)} != configured "
+                    f"{(self.config.height, self.config.width)}")
+            tier = self._pick_tier()
+            if tier is None:
                 result = self._fn(image)
-                count = int(result.count)
-            self._last_count = count
-        self.prev_result = self.last_result
-        self.last_result = result
+                if self.tiers:
+                    # The count steers the next frame's tier (the only host
+                    # synchronisation, and only with tiers on).
+                    self._last_count = int(result.count)
+            else:
+                result = self._tier_fns[tier](image)
+                # Both compactions (keypoints, then oriented copies) run at the
+                # tier, so a frame that fills either may have been truncated:
+                # run it again at full capacity for the exact result.  One host
+                # read for both counts.
+                count, raw = torch.stack([result.count,
+                                          result.raw_count]).tolist()
+                if max(count, raw) >= tier:
+                    result = self._fn(image)
+                    count = int(result.count)
+                self._last_count = count
+            self.prev_result = self.last_result
+            self.last_result = result
         return result
 
     def _pick_tier(self) -> Optional[int]:

@@ -15,8 +15,11 @@ in_axes=(None, 0, None, 0))``.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
+
+from sift_tpu_torch.perf import telemetry as T
 
 GRAM_ROUTES = ("f32", "tensor_cores")
 
@@ -76,40 +79,72 @@ def match_brute_force(query: torch.Tensor, train: torch.Tensor,
     config.descriptor_dtype="uint8") or float (0..255/0..512 quantised);
     ``t_valid`` [..., S].  Returns [..., Q] int32: index into train, or
     -1."""
-    if _is_int(query) and _is_int(train):
-        # u8-quantised descriptors: the Gram product is exact in float32
-        # (gram_u8), as the JAX package's bf16 product with
-        # preferred_element_type=float32 is.  The ratio test is scale
-        # invariant, so the reference's 0.25 pre-scale is dropped here.
-        qf = query.to(torch.float32)
-        tf = train.to(torch.float32)
-        qn = torch.sum(qf * qf, -1, keepdim=True)            # [Q, 1]
-        tn = torch.sum(tf * tf, -1).unsqueeze(-2)            # [..., 1, S]
-        d2 = qn + tn - 2.0 * gram_u8(query, train)
-    else:
-        q = query.to(torch.float32) * 0.25
-        t = train.to(torch.float32) * 0.25
-        qn = torch.sum(q * q, -1, keepdim=True)              # [Q, 1]
-        tn = torch.sum(t * t, -1).unsqueeze(-2)              # [..., 1, S]
-        with _tf32_off():
-            d2 = qn + tn - 2.0 * torch.matmul(q, t.transpose(-1, -2))
-    d2 = torch.clamp(d2, min=0.0)                            # [..., Q, S]
+    with T.span("sift.match"):
+        with T.span("sift.match.gram"):
+            if _is_int(query) and _is_int(train):
+                # u8-quantised descriptors: the Gram product is exact in
+                # float32 (gram_u8), as the JAX package's bf16 product with
+                # preferred_element_type=float32 is.  The ratio test is
+                # scale invariant, so the reference's 0.25 pre-scale is
+                # dropped here.
+                qf = query.to(torch.float32)
+                tf = train.to(torch.float32)
+                qn = torch.sum(qf * qf, -1, keepdim=True)        # [Q, 1]
+                tn = torch.sum(tf * tf, -1).unsqueeze(-2)        # [..., 1, S]
+                g = gram_u8(query, train)
+            else:
+                q = query.to(torch.float32) * 0.25
+                t = train.to(torch.float32) * 0.25
+                qn = torch.sum(q * q, -1, keepdim=True)          # [Q, 1]
+                tn = torch.sum(t * t, -1).unsqueeze(-2)          # [..., 1, S]
+                with _tf32_off():
+                    g = torch.matmul(q, t.transpose(-1, -2))
 
-    # Invalid-entry sentinel: must exceed any real distance (the unscaled
-    # u8 path reaches 128*255^2 ~ 8.3e6).
-    big = torch.full((), 1e9, dtype=torch.float32, device=d2.device)
-    if t_valid is not None:
-        d2 = torch.where(t_valid.unsqueeze(-2), d2, big)
+        with T.span("sift.match.select"):
+            # The product is let go before the clamp's output is made, so
+            # the call holds at most three [..., Q, S] float32 temporaries.
+            d2 = qn + tn
+            d2 -= 2.0 * g
+            del g
+            d2 = torch.clamp(d2, min=0.0)                        # [..., Q, S]
 
-    min1, idx1 = torch.min(d2, -1)
-    cols = torch.arange(d2.shape[-1], device=d2.device)
-    d2b = torch.where(cols == idx1.unsqueeze(-1), big, d2)
-    min2 = torch.min(d2b, -1).values
+            # Invalid-entry sentinel: must exceed any real distance (the
+            # unscaled u8 path reaches 128*255^2 ~ 8.3e6).
+            big = torch.full((), 1e9, dtype=torch.float32, device=d2.device)
+            if t_valid is not None:
+                d2 = torch.where(t_valid.unsqueeze(-2), d2, big)
 
-    matched = min1 < ratio * min2
-    if q_valid is not None:
-        matched = matched & q_valid
-    return torch.where(matched, idx1, -1).to(torch.int32)
+            min1, idx1 = torch.min(d2, -1)
+            cols = torch.arange(d2.shape[-1], device=d2.device)
+            d2b = torch.where(cols == idx1.unsqueeze(-1), big, d2)
+            min2 = torch.min(d2b, -1).values
+
+            matched = min1 < ratio * min2
+            if q_valid is not None:
+                matched = matched & q_valid
+            out = torch.where(matched, idx1, -1).to(torch.int32)
+
+        if T.tracing():
+            with T.span("sift.match.count"):
+                T.count("match.entries", d2.numel())
+                T.count_device("match.live_entries", live_entries(
+                    query, train, q_valid, t_valid))
+    return out
+
+
+def live_entries(query, train, q_valid=None, t_valid=None) -> torch.Tensor:
+    """0-d int64 on the train set's device: the distance entries of a
+    ``match_brute_force`` call that pair a live query row with a live
+    train row, summed over the train sets (a missing mask: every row of
+    that side is live)."""
+    lead = torch.broadcast_shapes(query.shape[:-2], train.shape[:-2])
+    nq = q_valid.sum(-1) if q_valid is not None else query.shape[-2]
+    nt = t_valid.sum(-1) if t_valid is not None else train.shape[-2]
+    per = nq * nt
+    if torch.is_tensor(per):
+        return torch.broadcast_to(per, lead).sum()
+    return torch.full((), per * math.prod(lead), dtype=torch.int64,
+                      device=train.device)
 
 
 def match_pairs(query, train, q_valid=None, t_valid=None, ratio: float = 0.8,
