@@ -901,35 +901,42 @@ def plain_path_pairing(det, frame, res, label):
 
 def check_matcher_exact(r1, r2, match_brute_force, emit=True):
     """C1: the CUDA matcher's indices on the smoke pair equal the exact
-    float32 ones — the same tensors matched on the CPU — and both routes
-    of its Gram product (f32 operands; bf16 operands on the tensor cores
-    with an f32 result) equal the float64 product.  Reports how many rows
-    the pre-repair route (a bf16 RESULT) gets wrong on the same pair.
-    ``emit``: print the line as the ``matcher_exact`` phase."""
-    from sift_tpu_torch.pipeline import matcher as M
+    float32 ones — the same tensors matched on the CPU — and its kernel's
+    (``kernels/match.match_u8_cuda``, one launch) equal its plain version's
+    on the card; both routes of the plain version's Gram product (f32
+    operands; bf16 operands on the tensor cores with an f32 result) equal
+    the float64 product.  Reports how many rows the pre-repair route (a
+    bf16 RESULT) gets wrong on the same pair.  ``emit``: print the line as
+    the ``matcher_exact`` phase."""
+    from sift_tpu_torch.kernels import match as KM
 
     args = (r2.descriptors, r1.descriptors, r2.keypoints.valid,
             r1.keypoints.valid)
+    n0 = KM.launches["match_u8"]
     cuda = match_brute_force(*args)
+    kernel_launches = KM.launches["match_u8"] - n0
+    plain = KM.match_u8_plain(*args)
     cpu = match_brute_force(*[a.cpu() for a in args])
     q, t = r2.descriptors, r1.descriptors
     exact = torch.matmul(q.double(), t.double().T)        # < 2^53: exact
-    gram_f32 = M.gram_u8(q, t)
-    gram_tc = M.gram_u8(q, t, "tensor_cores")
+    gram_f32 = KM.gram_u8(q, t)
+    gram_tc = KM.gram_u8(q, t, "tensor_cores")
     old_gram = lambda a, b, route="f32": torch.matmul(
         a.to(torch.bfloat16), b.to(torch.bfloat16).transpose(-1, -2)
     ).to(torch.float32)
-    saved = M.gram_u8
-    M.gram_u8 = old_gram
+    saved = KM.gram_u8
+    KM.gram_u8 = old_gram
     try:
-        old = match_brute_force(*args)
+        old = KM.match_u8_plain(*args)
     finally:
-        M.gram_u8 = saved
+        KM.gram_u8 = saved
     torch.cuda.synchronize()
     line = {
         "phase": "matcher_exact",
         "queries": int(q.shape[0]),
         "matched": int((cuda >= 0).sum()),
+        "kernel_launches": kernel_launches,
+        "equal_to_plain": bool(torch.equal(cuda, plain)),
         "equal_to_cpu": bool(torch.equal(cuda.cpu(), cpu)),
         "gram_f32_exact": bool(torch.equal(gram_f32.double(), exact)),
         "gram_tensor_cores_exact": bool(torch.equal(gram_tc.double(),
@@ -939,13 +946,91 @@ def check_matcher_exact(r1, r2, match_brute_force, emit=True):
         "max_gram_err_before_repair": float(
             (old_gram(q, t).double() - exact).abs().max()),
         "match_ms": time_ms(lambda: match_brute_force(*args)),
+        "plain_ms": time_ms(lambda: KM.match_u8_plain(*args)),
     }
     if emit:
         say(line)
-    if not (line["equal_to_cpu"] and line["gram_f32_exact"]
+    if not (line["equal_to_cpu"] and line["equal_to_plain"]
+            and line["kernel_launches"] == 1 and line["gram_f32_exact"]
             and line["gram_tensor_cores_exact"]):
         fail("matcher_exact: the CUDA matcher is not exact")
     return line
+
+
+# The matcher kernel's call shapes: (label, train sets, query sets, rows).
+MATCH_SHAPES = (("uhd_exhaustive", 10, 10, 10000),
+                ("uhd_sequential", 10, 1, 10000),
+                ("wvga_exhaustive", 10, 10, 5000))
+PEAK_INT8_OPS = 1979e12         # H100 SXM int8 tensor cores, dense
+
+
+def match_sets(n_sets, rows, seed=0):
+    """``n_sets`` uint8 descriptor sets of ``rows`` on the card, each after
+    the first holding noisy copies of half the rows of the one before,
+    with live prefixes of 15-100 % of ``rows``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 120, (n_sets, rows, 128), generator=g)
+    half = rows // 2
+    for s in range(1, n_sets):
+        x[s, :half] = (x[s - 1, half:2 * half] + torch.randint(
+            -4, 5, (half, 128), generator=g)).clamp(0, 255)
+    live = torch.randint(int(0.15 * rows), rows + 1, (n_sets,), generator=g)
+    valid = torch.arange(rows)[None, :] < live[:, None]
+    return x.to(torch.uint8).cuda(), valid.cuda()
+
+
+def check_match_u8():
+    """The matcher kernel at the benchmark's call shapes: ten 10000-row
+    query sets against ten train sets, one 10000-row frame against a ring
+    of ten, ten 5000-row pairs.  Index for index equal to its plain
+    version on the card; ``ms`` (CUDA events over single calls),
+    ``device_ms`` (torch.profiler, its two kernels), ``plain_ms`` and
+    ``bound_ms``: the larger of the sets, masks and indices at 3.35 TB/s
+    and two operations a multiply-add of the Gram product at the int8
+    tensor-core peak (``bench_port/rooflines.match_work``)."""
+    from sift_tpu_torch.kernels import match as KM
+    from sift_tpu_torch.perf.profile import device_ms
+
+    n0 = KM.launches["match_u8"]
+    shapes, passed = {}, True
+    for label, n_sets, q_sets, rows in MATCH_SHAPES:
+        t, tv = match_sets(n_sets, rows)
+        q, qv = (torch.roll(t, 1, 0), torch.roll(tv, 1, 0)) if q_sets > 1 \
+            else (t[3].clone(), tv[3].clone())
+        args = (q, t, qv, tv)
+        ker = KM.match_u8_cuda(*args)
+        pla = KM.match_u8_plain(*args)
+        torch.cuda.synchronize()
+        diff = int((ker != pla).sum())
+        passed = passed and diff == 0
+        # a descriptor and its mask byte read once, an index written once
+        bytes_ = (q_sets + n_sets) * rows * 129 + n_sets * rows * 4
+        ops = n_sets * 2 * rows * rows * 128
+        t_b, t_o = bytes_ / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
+        dev = device_ms(lambda: KM.match_u8_cuda(*args), name="match_u8")
+        shapes[label] = dict(
+            train_sets=n_sets, query_sets=q_sets, rows=rows,
+            live_rows=tv.sum(1).tolist(), matched=int((ker >= 0).sum()),
+            indices_differing=diff, ms=time_ms(lambda: KM.match_u8_cuda(
+                *args)), device_ms=dev,
+            plain_ms=time_ms(lambda: KM.match_u8_plain(*args), reps=5),
+            bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations",
+            roofline_share=(max(t_b, t_o) / dev if dev else None))
+        del ker, pla, args, q, t
+        torch.cuda.empty_cache()
+    head = shapes["uhd_exhaustive"]
+    return dict(name="match_u8", route="cuda",
+                source="sift_tpu_torch/csrc/match_u8.cu",
+                replaces="none: the PyTorch distance chain "
+                         "(kernels/match.match_u8_plain)",
+                launches=None, launches_check=KM.launches["match_u8"] - n0,
+                max_abs_err=0.0 if passed else None, ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], device_ms=head["device_ms"],
+                library_ms=None, launches_per_frame=None,
+                tolerance="index for index", passed=bool(passed),
+                shapes=shapes)
 
 
 def _vo_odometry(width, height, scene, **kw):
@@ -2646,9 +2731,9 @@ def run_scale_point(FD, EX, FS, smi):
         bound_by={k: e["bound_by"] for k, e in kernels.items()},
         plain_ms={k: e["plain_ms"] for k, e in kernels.items()},
         matcher_exact={k: mx[k] for k in (
-            "queries", "matched", "equal_to_cpu", "gram_f32_exact",
-            "gram_tensor_cores_exact", "rows_differing_before_repair",
-            "match_ms")})
+            "queries", "matched", "equal_to_cpu", "equal_to_plain",
+            "gram_f32_exact", "gram_tensor_cores_exact",
+            "rows_differing_before_repair", "match_ms", "plain_ms")})
 
     # What a user of this size sees: the frame's time on the card and on
     # the host clock, where the device time goes, the tools' lines.
@@ -2725,6 +2810,7 @@ def main() -> int:
     from sift_tpu_torch.kernels import expand as EX
     from sift_tpu_torch.kernels import fused_detect as FD
     from sift_tpu_torch.kernels import fused_stages as FS
+    from sift_tpu_torch.kernels import match as KM
     from sift_tpu_torch.kernels import window_gather as WG
     from sift_tpu_torch.perf.benchimg import (FLAGSHIP_FEATURES as
                                               NUM_FEATURES,
@@ -2786,15 +2872,18 @@ def main() -> int:
         main_e["passed"] = main_e["passed"] and syn_e["passed"]
     k4 = check_gather(gauss[0], cfg)
     kernels = [k1, k5, k2, k3, k4] + check_window_proto(per_kernel)
+    km = check_match_u8()
 
     # -- main path --------------------------------------------------------
     torch.cuda.synchronize()
     zero_counters(FD, EX, FS)
     frames = (f1, f2)
     r1, r2 = [det.detect_and_compute(f) for f in frames]
+    KM.launches["match_u8"] = 0
     matches = match_brute_force(r2.descriptors, r1.descriptors,
                                 r2.keypoints.valid, r1.keypoints.valid)
     torch.cuda.synchronize()
+    km["launches"] = KM.launches["match_u8"]
     counts = {**FD.launches, **EX.launches, **FS.launches}
     plain = {**FD.plain_calls, **EX.plain_calls, **FS.plain_calls}
     for e in kernels[:4]:
@@ -2905,6 +2994,7 @@ def main() -> int:
             main_e[sub["inputs"]] = {key: sub[key] for key in sub
                                      if key not in ENTRY_KEYS}
             main_e["passed"] = main_e["passed"] and sub["passed"]
+    kernels.append(km)
     say({"kernels": kernels})
     bad = [e["name"] for e in kernels if not e["passed"]]
     if bad:

@@ -23,7 +23,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_detect.cu", "expand.cu", "orientation_hist.cu",
-           "descriptor_hist.cu", "window_gather.cu", "window_proto.cu")
+           "descriptor_hist.cu", "window_gather.cu", "window_proto.cu",
+           "match_u8.cu")
 HEADERS = ("common.cuh",)
 
 # -fmad=false (and no fast-math): a*b+c is NOT contracted, divisions and
@@ -138,6 +139,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "sift_window_colsum_ring": [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                     p],
         "sift_window_colsum_ring_geometry": [i, i, i, pll, pi],
+        # query, its set stride, q_valid, its stride, train, its stride,
+        # t_valid, its stride, cols scratch, out, sets, Q, S, ratio, stream
+        "sift_match_u8": [p, ll, p, ll, p, ll, p, ll, p, p, i, i, i, f, p],
     }
     for name, argtypes in table.items():
         if hasattr(lib, name):

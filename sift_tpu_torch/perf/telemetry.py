@@ -17,8 +17,11 @@ synchronisation) move process-wide counters, again only while tracing;
 ``program_counters()`` reads them all after the work.  The detector opens
 ``sift.detect`` and its stages ``sift.detect.{pyramid, records, walk,
 compact, orientation, expand, descriptor}``; the matcher ``sift.match``
-over ``sift.match.{gram, select, count}`` and counts ``match.entries`` and
-``match.live_entries``.
+over ``sift.match.fused`` (uint8 descriptors on the card: its kernel's
+launches) or ``sift.match.{gram, select}`` (the plain path), then
+``sift.match.count``, and counts ``match.entries``,
+``match.live_entries`` and, once a call that took the kernel,
+``match.kernel_calls``.
 """
 
 from __future__ import annotations

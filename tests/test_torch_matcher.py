@@ -215,3 +215,180 @@ def test_match_batched_train_axis_equals_loop_and_jax_vmap(descs):
                                torch.from_numpy(stack.astype(np.float32)),
                                torch.from_numpy(qv), torch.from_numpy(tvs))
     assert torch.equal(mf, mt)
+
+
+# -- the kernel's contract, held on its plain version ----------------------
+
+def _exact(query, train, qv=None, tv=None, ratio=0.8):
+    """Reference semantics in float64 numpy: masked train rows at 1e9,
+    min1 at its first column, min2 the smallest over the other columns,
+    the test in float32, -1 where it fails or the query is masked."""
+    q = query.astype(np.float64)
+    t = train.astype(np.float64)
+    d = (q * q).sum(-1)[:, None] + (t * t).sum(-1)[None, :] - 2.0 * q @ t.T
+    if tv is not None:
+        d = np.where(tv[None, :], d, 1e9)
+    i1 = d.argmin(-1)
+    rows = np.arange(len(q))
+    m1 = d[rows, i1]
+    d[rows, i1] = 1e9
+    m2 = d.min(-1)
+    ok = m1.astype(np.float32) < np.float32(ratio) * m2.astype(np.float32)
+    if qv is not None:
+        ok &= qv
+    return np.where(ok, i1, -1)
+
+
+def _plain(query, train, qv=None, tv=None, ratio=0.8):
+    from sift_tpu_torch.kernels.match import match_u8_plain
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    out = match_u8_plain(t(query), t(train), t(qv), t(tv), ratio).numpy()
+    # the matcher takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        stt.match_brute_force(t(query), t(train), t(qv), t(tv), ratio)
+        .numpy(), out)
+    return out
+
+
+def _rows(n, seed, hi=120):
+    return np.random.default_rng(seed).integers(0, hi, (n, 128)) \
+        .astype(np.uint8)
+
+
+@pytest.mark.parametrize("ratio", [0.8, 1.0, 1.5])
+def test_plain_tie_for_the_nearest_row(ratio):
+    """Two equal train rows nearest to the query: min2 == min1, so the
+    test fails at a ratio up to 1; above it the first of the two columns
+    matches."""
+    train = _rows(40, 1)
+    train[7] = train[23]
+    query = np.stack([train[23], train[5]])
+    query[0, :3] += 2                     # min1 == min2 == 12, not 0
+    got = _plain(query, train, ratio=ratio)
+    np.testing.assert_array_equal(got, _exact(query, train, ratio=ratio))
+    assert got[0] == (7 if ratio > 1.0 else -1) and got[1] == 5
+
+
+@pytest.mark.parametrize("valid", ["none", "one", "one_of_one"])
+def test_plain_masked_train_rows(valid):
+    """All train rows masked: min1 == min2 == 1e9 and nothing matches.
+    Exactly one valid row (of 50, or S = 1): min2 is the 1e9 sentinel, so
+    every valid query matches that row, however far it is."""
+    train = _rows(50, 2)
+    query = _rows(30, 3)
+    tv = np.zeros(50, bool)
+    if valid == "one":
+        tv[17] = True
+    elif valid == "one_of_one":
+        train, tv = train[17:18], np.ones(1, bool)
+    qv = np.arange(30) % 4 != 0
+    got = _plain(query, train, qv, tv)
+    np.testing.assert_array_equal(got, _exact(query, train, qv, tv))
+    if valid == "none":
+        assert (got == -1).all()
+    else:
+        want = 0 if valid == "one_of_one" else 17
+        np.testing.assert_array_equal(got, np.where(qv, want, -1))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_single_train_row(masked):
+    """S = 1: min2 is the sentinel; a masked row matches nothing."""
+    train = _rows(1, 4)
+    query = np.concatenate([train, _rows(9, 5)])
+    tv = np.array([not masked])
+    got = _plain(query, train, None, tv)
+    np.testing.assert_array_equal(got, _exact(query, train, None, tv))
+    np.testing.assert_array_equal(got, np.full(10, -1 if masked else 0))
+
+
+def test_plain_largest_distance():
+    """All-0 queries against all-255 rows reach 128 * 255^2 = 8,323,200,
+    exact in float32; one nearer row beats it, a tie of two does not."""
+    train = np.full((6, 128), 255, np.uint8)
+    query = np.zeros((3, 128), np.uint8)
+    query[1] = 255
+    train[4, :64] = 0                     # distance 64 * 255^2 from query 0
+    got = _plain(query, train)
+    np.testing.assert_array_equal(got, _exact(query, train))
+    assert got[0] == 4                    # 4,161,600 < 0.8 * 8,323,200
+    assert got[1] == -1                   # five rows at distance 0
+    d = (query[2].astype(np.int64) - train[0].astype(np.int64)) ** 2
+    assert d.sum() == 128 * 255 * 255 and got[2] == 4
+
+
+def test_plain_query_broadcast_over_a_stack_equals_a_loop():
+    """One [Q, 128] query set against a [3, S, 128] stack with [3, S]
+    masks: each slice equals a single call and the float64 reference."""
+    query = _rows(60, 6)
+    stack = np.stack([_rows(70, 7), _rows(70, 8), _rows(70, 9)])
+    stack[1, :30] = query[:30]
+    rng = np.random.default_rng(10)
+    tvs = rng.uniform(size=(3, 70)) < 0.7
+    qv = rng.uniform(size=60) < 0.9
+    from sift_tpu_torch.kernels.match import match_u8_plain
+    out = match_u8_plain(torch.from_numpy(query), torch.from_numpy(stack),
+                         torch.from_numpy(qv), torch.from_numpy(tvs))
+    assert tuple(out.shape) == (3, 60) and out.dtype == torch.int32
+    for c in range(3):
+        np.testing.assert_array_equal(
+            out[c].numpy(), _plain(query, stack[c], qv, tvs[c]))
+        np.testing.assert_array_equal(
+            out[c].numpy(), _exact(query, stack[c], qv, tvs[c]))
+    assert (out[1] >= 0).sum() > 10
+
+
+@pytest.mark.parametrize("shape", ["q", "sets_q"])
+def test_plain_query_mask_shapes(shape):
+    """q_valid as [Q] (shared by every set) and as [..., Q] (one row of
+    the mask a set), with [2, Q, 128] queries against [2, S, 128] sets."""
+    queries = np.stack([_rows(40, 11), _rows(40, 12)])
+    sets = np.stack([_rows(50, 13), _rows(50, 14)])
+    sets[0, :20] = queries[0, :20]
+    sets[1, 10:30] = queries[1, :20]
+    rng = np.random.default_rng(15)
+    qv = rng.uniform(size=(2, 40)) < 0.6
+    if shape == "q":
+        qv = qv[0]
+    from sift_tpu_torch.kernels.match import match_u8_plain
+    out = match_u8_plain(torch.from_numpy(queries), torch.from_numpy(sets),
+                         torch.from_numpy(qv)).numpy()
+    for c in range(2):
+        m = qv if shape == "q" else qv[c]
+        np.testing.assert_array_equal(out[c],
+                                      _exact(queries[c], sets[c], m))
+        assert (out[c][~m] == -1).all() and (out[c] >= 0).sum() > 5
+
+
+@pytest.mark.parametrize("shapes", [
+    [(), (3,), (1,)], [(2, 1), (5,)], [(4, 1, 3), (1, 6, 1), ()],
+    [(1,), (1,)], [(0,), (1,)]])
+def test_kernel_wrapper_broadcast_equals_torch(shapes):
+    """The wrapper's set axes: the broadcast of the query's, the train
+    set's and the masks' leading shapes, as torch.broadcast_shapes gives
+    it (without that function's first-call import)."""
+    from sift_tpu_torch.kernels.match import _broadcast
+    assert _broadcast(*shapes) == tuple(torch.broadcast_shapes(*shapes))
+
+
+def test_kernel_wrapper_sets_and_refusals():
+    """``_sets`` lays a tensor out as sets a stride apart (0: one copy
+    serves every set), and ``match_u8_cuda`` refuses what the kernel does
+    not take: CPU tensors, other dtypes, another width, unbroadcastable
+    set axes."""
+    from sift_tpu_torch.kernels.match import _broadcast, _sets, match_u8_cuda
+    q = torch.arange(2 * 3 * 128).reshape(2, 3, 128).to(torch.uint8)
+    x, stride = _sets(q[0], (2,), (3, 128))
+    assert stride == 0 and x.shape == (3, 128)
+    x, stride = _sets(q, (2,), (3, 128))
+    assert stride == 3 * 128 and x.data_ptr() == q.data_ptr()
+    x, stride = _sets(q[:1], (4,), (3, 128))
+    assert stride == 0 and torch.equal(x, q[0])
+    x, stride = _sets(q[None], (5, 2), (3, 128))
+    assert stride == 3 * 128 and x.shape == (5, 2, 3, 128)
+    assert torch.equal(x[4, 1], q[1])
+    with pytest.raises(ValueError):
+        _broadcast((2,), (3,))
+    for bad in (q, q.to(torch.int32), q[..., :64]):
+        with pytest.raises(ValueError):
+            match_u8_cuda(bad, bad)
